@@ -1,0 +1,77 @@
+"""Shared helpers of the port's tests (the counterpart of pallas_common.py).
+
+They carry a JAX bundle across to the port as plain numpy arrays
+(``bundle_from_numpy``), make the same camera rays on both sides from one
+numpy seed, and hold the port's primal estimate against the JAX flat
+engine's with the rule the Pallas kernel tests use.
+"""
+import numpy as np
+import torch
+
+import jax.numpy as jnp
+
+from uivr_tpu.scene import Scene, finalize_medium
+from uivr_tpu.scene.camera import sample_rays
+from uivr_tpu.scene.emitters import ConstantEmitter as JConstantEmitter
+from uivr_tpu_torch.config import bundle_from_numpy
+from uivr_tpu_torch.scene.medium import finalize_medium as t_finalize_medium
+from uivr_tpu_torch.scene.scene import Scene as TScene
+
+
+def bundle_to_numpy(b) -> dict:
+    """Plain numpy view of a JAX SceneBundle, as ``bundle_from_numpy``
+    takes it."""
+    a = np.asarray
+    cfg = b.medium_cfg
+    d = dict(sigma_t=a(b.params.sigma_t), albedo=a(b.params.albedo),
+             emission=a(b.params.emission),
+             majorant_factor=cfg.majorant_factor, scale=cfg.scale,
+             phase_g=cfg.phase_g,
+             kernel_majorant_max_cells=cfg.kernel_majorant_max_cells,
+             cam_to_world=a(b.cameras.cam_to_world),
+             tan_half_fov=a(b.cameras.tan_half_fov),
+             aspect=a(b.cameras.aspect), to_world=a(b.to_world),
+             film_size=tuple(b.film_size), max_depth=b.max_depth)
+    if b.start_from is not None:
+        d.update(start_sigma_t=a(b.start_from.sigma_t),
+                 start_albedo=a(b.start_from.albedo),
+                 start_emission=a(b.start_from.emission))
+    e = b.emitter
+    if isinstance(e, JConstantEmitter):
+        d["radiance"] = a(e.radiance)
+    else:
+        d.update(env_data=a(e.data), env_alias_tab=a(e.alias_tab),
+                 env_flat_data=a(e.flat_data), env_row_pmf=a(e.row_pmf),
+                 env_cond_pmf=a(e.cond_pmf), env_to_world=a(e.to_world))
+    return d
+
+
+def both_scenes(jb, device="cpu"):
+    """(JAX scene, port bundle, port scene) of one JAX bundle."""
+    jsc = Scene(medium=finalize_medium(jb.params, jb.medium_cfg, jb.to_world),
+                emitter=jb.emitter, cameras=jb.cameras)
+    tb = bundle_from_numpy(bundle_to_numpy(jb), device=device)
+    tsc = TScene(medium=t_finalize_medium(tb.params, tb.medium_cfg, tb.to_world),
+                 emitter=tb.emitter, cameras=tb.cameras)
+    return jsc, tb, tsc
+
+
+def camera_rays(jb, n=1024, seed=3):
+    """The same n camera rays of sensor 0 (JAX-generated) for both sides:
+    (o, d) as JAX arrays and as float32 torch tensors on the CPU."""
+    rng = np.random.RandomState(seed)
+    uv = jnp.asarray(rng.rand(n, 2) * 0.6 + 0.2, jnp.float32)
+    o, d = sample_rays(jb.cameras, jnp.zeros((n,), jnp.int32), uv)
+    return (o, d), (torch.from_numpy(np.array(o)), torch.from_numpy(np.array(d)))
+
+
+def assert_lanes_agree(L_ref, L, tol_frac=0.025, atol=1e-5):
+    """>= (1 - tol_frac) of lanes within ``atol`` on all channels, and the
+    channel means within rtol 5e-2 / atol 5e-3.  Lanes may flip at float
+    boundaries (different fused arithmetic sends a lane down a different
+    but equally valid path); nearly all must match exactly."""
+    L_ref, L = np.asarray(L_ref), np.asarray(L)
+    agree = np.mean(np.all(np.abs(L_ref - L) < atol, axis=-1))
+    assert agree > 1.0 - tol_frac, f"lane agreement {agree}"
+    np.testing.assert_allclose(L_ref.mean(0), L.mean(0), rtol=0.05, atol=5e-3)
+    return agree
