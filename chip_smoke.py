@@ -6,7 +6,8 @@
 Phases, one JSON line each; any failure exits nonzero before the last line:
 
 1. device: the card (``nvidia-smi`` name and power limit on a line of its
-   own), torch and CUDA versions, and the kernels' nvcc build.
+   own), torch and CUDA versions, and the kernels' nvcc builds (one nvcc
+   per source, started together) with ptxas' registers and spills.
 2. tea (K1): ``tea_kernel`` against the plain ``tea_plain`` on 2**20 random
    (v0, v1) pairs at 5, 6 and 8 rounds; bit for bit.
 3. primal (K2 + K3): ``volpath_primal_kernel`` against the plain twin
@@ -22,10 +23,36 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
    the plain twin must not have run.  The EXR is read back and checked.
    Then three more renders (host clock) and one timed part by part with
    CUDA events: scene set-up, ray generation, kernel, reduction.
-5. kernels: each kernel at the shape the render gave it (its first chunk
-   of 2**20 rays), timed with CUDA events beside its plain version, with
-   the least time the card could take (``bound_ms``, below).
-6. the last line: {"ok": true, "device": {...}}.
+5. the primal kernels at the shape the render gave them (its first chunk
+   of 2**20 rays), timed with CUDA events beside their plain versions.
+6. adjoint (K4 + K5): ``volpath_adjoint_kernel`` against the twin's
+   adjoint walk after one replay primal each, on the same rays, seed and
+   random dL: janga-smoke, 8,192 random-pixel rays, under
+   ``volpathsimple-drt`` and under ``volpathsimple-basic`` with shadow RR
+   0.05; tiny-cube, 16,384 rays, NEE on and off.  Per-lane primary draws,
+   alt draws and reservoir depth equal on >= 0.90 of lanes (janga) and
+   >= 0.95 (cube); gradients' relative L1 sum|a-b| / sum|a| <= 1e-2 on
+   sigma and albedo (atomics reorder the sums).
+7. drt: the ``volpath_drt`` kernels and ``volpath_primal_state_kernel``
+   against the twin's delayed DRT term on the janga reservoirs of phase 6:
+   equal wavefront maxima K_A and K_B, per-lane t_sel, wsum and found equal
+   on >= 0.90 of lanes, gradients' relative L1 <= 1e-2.
+8. train: ``opt.run_optimization`` on janga-smoke with
+   ``volpathsimple-drt`` at full width (batch 32,768, 16 adjoint spp,
+   primal factor 64: 33,554,432 primal and 524,288 adjoint rays a step),
+   3 iterations, 128^3 grids trained (no upsampling), references at 64
+   spp (a cut: the step does not depend on it), counters set to 0 just
+   before.  Per iteration its seconds and loss; the kernels launched, the
+   twins never ran, parameters changed, the .vol checkpoints read back.
+   Then one step part by part (CUDA events) from the constant start and
+   one from the ground-truth grids; the gradients must be finite and
+   nonzero.
+9. cli: ``uivr_tpu_torch.cli.reproduce`` on tiny-cube (20 iterations at
+   batch 557); metrics.jsonl must hold losses and the final checkpoint
+   must exist.
+10. kernels: every kernel of both paths at the shape the main path gives
+   it, with its launches, time, plain version's time, bound and agreement.
+11. the last line: {"ok": true, "device": {...}}.
 
 ``bound_ms`` is the larger of the bytes the function must move (each input
 read once, each output written once) over 3.35 TB/s and its operations
@@ -36,6 +63,8 @@ tracking event and ``FLOP_PER_EXTRA_DRAW`` per draw beyond the two every
 event takes (one per real collision, four per scatter with NEE).
 ``gather_bound_ms`` counts instead the bytes the events fetch: 132 B of
 grid and majorant per event, 28 B of envmap per scatter, 36 B per ray.
+The training kernels' bounds count the bytes their events fetch as well
+(``adjoint_bound``, ``drt_bounds``), from this run's per-lane counters.
 """
 import dataclasses
 import json
@@ -45,6 +74,8 @@ import sys
 import time
 import traceback
 from pathlib import Path
+
+import numpy as np
 
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
@@ -125,9 +156,520 @@ def time_render_parts(st, b, seed, spp):
     return parts
 
 
+def ptxas_report(log):
+    """{kernel: "registers, spills"} from nvcc -Xptxas -v output."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+            out[name] = []
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name].append(ln.split(":", 1)[-1].strip())
+    return {k: "; ".join(v) for k, v in out.items()}
+
+
 def lane_agreement(L, Lref):
     ok = ((L - Lref).abs() <= 1e-4 * (1.0 + Lref.abs())).all(dim=-1)
     return ok.float().mean().item()
+
+
+# ------------------------------------------------------------------ training
+DRT_KERNELS = ("volpath_drt_walk", "volpath_drt_nee", "volpath_drt_phase",
+               "volpath_drt_scatter")
+ADJ_KERNELS = ("volpath_adjoint", "volpath_primal_state") + DRT_KERNELS
+TRAIN_KERNELS = ("volpath_primal",) + ADJ_KERNELS
+
+
+def rel_l1(a, ref):
+    return float((a - ref).abs().sum() / ref.abs().sum().clamp_min(1e-30))
+
+
+def equal_frac(a, b):
+    return float((a == b).float().mean())
+
+
+class Timer:
+    """CUDA-event times (ms) of consecutive parts, one sync per part."""
+
+    def __init__(self):
+        import torch
+        self.torch = torch
+        self.parts = {}
+        self.ev = self.torch.cuda.Event(enable_timing=True)
+        self.ev.record()
+
+    def __call__(self, name):
+        end = self.torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.torch.cuda.synchronize()
+        self.parts[name] = self.parts.get(name, 0.0) + self.ev.elapsed_time(end)
+        self.ev = end
+
+
+def drt_launch(vs, D, which, mis):
+    """One volpath_drt launch outside the wrapper (timing and comparison
+    only: it does not count in LAUNCHES)."""
+    import ctypes
+    import torch
+    rc = vs._load("drt").volpath_drt_launch(ctypes.byref(D), which, mis,
+                                            torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"volpath_drt launch {which} failed ({rc})")
+
+
+def kernel_drt(vs, cfg, sc, seed, res, adjoint, timer=None):
+    """The delayed DRT term launch by launch, as drt_backward_kernel runs
+    it, with an optional Timer after each kernel.  Returns its outputs."""
+    from uivr_tpu_torch.core.rng import sample_tea_32
+    from uivr_tpu_torch.scene.gradients import init_accum
+    acc = init_accum(sc.medium, need_emission=False)
+    D, out, ps, counts = vs.drt_params(cfg, sc, seed, res, adjoint, acc)
+    mis = int(cfg.use_drt_mis)
+    drt_launch(vs, D, 0, mis)
+    if timer:
+        timer("drt_walk")
+    if cfg.use_nee:
+        drt_launch(vs, D, 1, mis)
+        if timer:
+            timer("drt_nee")
+    drt_launch(vs, D, 2, mis)
+    if timer:
+        timer("drt_phase")
+    rec_L, _, rec_stats = vs.sample_primal_kernel(cfg, sc, None, None,
+                                                  sample_tea_32(seed, 0x7177)[0],
+                                                  return_stats=True, path_state=ps)
+    if timer:
+        timer("drt_recursive_primal")
+    D.rec_L = rec_L.data_ptr()
+    drt_launch(vs, D, 3, mis)
+    if timer:
+        timer("drt_scatter")
+    return dict(acc=acc, out=out, ps=ps, counts=counts, rec_L=rec_L, rec_stats=rec_stats)
+
+
+def plain_drt(cfg, sc, seed, res, adjoint):
+    """The twin's delayed DRT term (volpath_flat._drt_backward_flat), part
+    by part, with host-clock times."""
+    import torch
+    from uivr_tpu_torch.core import aabb
+    from uivr_tpu_torch.core.fmath import ray_point
+    from uivr_tpu_torch.core.rng import make_sampler, next_1d, next_2d, sample_tea_32
+    from uivr_tpu_torch.integrators import volpath_flat
+    from uivr_tpu_torch.integrators.volpathsimple import PathState, _exit_dist, _nee_primal
+    from uivr_tpu_torch.scene.gradients import init_accum, scatter_sigma_albedo
+    from uivr_tpu_torch.scene.medium import sigma_albedo_at
+    from uivr_tpu_torch.scene.phase import phase_sample
+    from uivr_tpu_torch.tracking import drt_distance
+    m = sc.medium
+    ms = {}
+
+    def lap(name, t0):
+        torch.cuda.synchronize()
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    t0 = time.perf_counter()
+    gs = make_sampler(sample_tea_32(seed, 0x5151)[0], n_lanes=res.o_l.shape[0],
+                      device=res.o_l.device)
+    t_sel, wsum, found, gs = drt_distance(m, res.o_l, res.d_l, res.maxt, gs, res.active,
+                                          max_steps=cfg.max_steps)
+    k_a = gs.dim // 2
+    active = res.active & found
+    p = ray_point(res.o_l, torch.where(found, t_sel, 0.0), res.d_l)
+    t0 = lap("volpath_drt_walk", t0)
+    nee = torch.zeros_like(adjoint)
+    dim_b = gs.dim
+    if cfg.use_nee:
+        nee, _, gs = _nee_primal(cfg, sc, p, res.d_w, torch.ones_like(adjoint), gs, active)
+        t0 = lap("volpath_drt_nee", t0)
+    k_b = gs.dim - dim_b - 2 if cfg.use_nee else 0
+    u1, gs = next_1d(gs)
+    u2, gs = next_2d(gs)
+    wo, ph_pdf = phase_sample(m.phase_g, res.d_w, u1, u2[:, 1])
+    rec_dl = aabb.transform_dirs(m.world_to_local, wo)
+    rec_maxt = _exit_dist(p, rec_dl)
+    depth = torch.where(active, res.depth + 1, res.depth)
+    ps = PathState(active=active & (depth < cfg.max_depth) & (rec_maxt > 1e-7),
+                   depth=depth, o_l=p, d_l=rec_dl, d_w=wo, maxt=rec_maxt,
+                   last_pdf=torch.where(active, ph_pdf, 1.0))
+    t0 = lap("volpath_drt_phase", t0)
+    rec_L, _ = volpath_flat.sample_primal(cfg, sc, None, None, sample_tea_32(seed, 0x7177)[0],
+                                          path_state=ps)
+    t0 = lap("volpath_primal_state", t0)
+    sig, alb = sigma_albedo_at(m, p)
+    w_mis = 1.0 / (1.0 + sig * sig) if cfg.use_drt_mis else torch.ones_like(sig)
+    factor = (w_mis * wsum)[:, None] * adjoint * (nee + rec_L if cfg.use_nee else rec_L)
+    fa = factor * alb
+    scatter_sigma_albedo(init_accum(m, need_emission=False), m, p,
+                         (fa[:, 0] + fa[:, 1]) + fa[:, 2], factor * sig[:, None], active)
+    lap("volpath_drt_scatter", t0)
+    return dict(t_sel=t_sel, wsum=wsum, found=found, k_a=k_a, k_b=k_b, nee=nee, ps=ps,
+                rec_L=rec_L, ms=ms)
+
+
+def adjoint_bound(n, stats, cfg):
+    """Least time of volpath_adjoint at this run's counts: the bytes its
+    events fetch (132 B per event, 128 B of atomics per real collision, 32 B
+    per transmittance sample and per replay collision) plus the compulsory
+    per-ray I/O (o, d, L, dL in; reservoir out: 120 B), against the flops
+    of its events."""
+    events = int(stats["steps"].sum())
+    real = int(stats["events"][:, 0].sum())
+    replay = int(stats["events"][:, 1].sum())
+    per_seg = cfg.trans_grad_samples + int(cfg.use_drt and cfg.use_drt_subsampling)
+    samples = int(stats["alt_dim"].sum()) // per_seg * cfg.trans_grad_samples
+    extra_draws = int(stats["dim"].sum()) + int(stats["alt_dim"].sum()) - 2 * events
+    n_bytes = 132 * events + 128 * real + 32 * (samples + replay) + 120 * n
+    return bound(n_bytes, FLOP_PER_STEP * events + FLOP_PER_EXTRA_DRAW * extra_draws), {
+        "events": events, "real_collisions": real, "replay_collisions": replay,
+        "trans_samples": samples}
+
+
+def drt_bounds(n, kd, cfg):
+    """Least times of the four DRT kernels at this run's counts (bytes the
+    walks fetch, 132 B per step; 128 B of reads and 128 B of atomics per
+    scattered vertex; per-lane I/O) against their hash operations
+    (4 + 8 TEA rounds per wavefront draw)."""
+    hash_ops = TEA_OPS_PER_ROUND * 12
+    trips_a = int(kd["out"]["trips_a"].sum())
+    trips_b = int(kd["out"]["trips_b"].sum())
+    active = int(kd["out"]["active"].sum())
+    return {
+        "volpath_drt_walk": bound(132 * trips_a + n * (44 + 26),
+                                  trips_a * (2 * hash_ops + FLOP_PER_STEP)),
+        "volpath_drt_nee": bound(132 * trips_b + 28 * active + n * (25 + 16),
+                                 trips_b * (hash_ops + FLOP_PER_STEP) + 2 * hash_ops * active),
+        "volpath_drt_phase": bound(n * (12 + 8 + 1 + 48 + 9), n * (2 * hash_ops + 100)),
+        "volpath_drt_scatter": bound(n * 1 + active * (12 + 4 + 36 + 128 + 128),
+                                     active * 150),
+    }, {"walk_steps": trips_a, "nee_steps": trips_b, "vertices": active}
+
+
+def phase_adjoint(card, dev, vs, janga, cube, rays_of):
+    """Kernel vs twin on the adjoint walk (after one replay primal each)."""
+    import dataclasses
+    import torch
+    from uivr_tpu_torch.config import get_int_config
+    from uivr_tpu_torch.integrators import volpath_flat
+    rs = np.random.RandomState(20261017)
+    runs = [("janga-smoke", janga, "volpathsimple-drt", {}, 8192, 0.90),
+            ("janga-smoke", janga, "volpathsimple-basic", {"shadow_rr": 0.05}, 8192, 0.90),
+            ("tiny-cube", cube, "volpathsimple-drt", {}, 16384, 0.95),
+            ("tiny-cube", cube, "volpathsimple-drt", {"use_nee": False}, 16384, 0.95)]
+    keep = None
+    for name, (preset, b, sc), integ, kw, n, need in runs:
+        cfg = dataclasses.replace(get_int_config(integ).create(max_depth=preset.max_depth), **kw)
+        o, d = rays_of(b, n)
+        dL = torch.from_numpy(rs.rand(n, 3).astype(np.float32) / n).to(dev)
+        seed = 4242
+        Lk, _ = vs.sample_primal_kernel(cfg, sc, o, d, seed)
+        acc_k, res_k, st_k = vs.adjoint_walk_kernel(cfg, sc, o, d, seed, dL, Lk)
+        torch.cuda.synchronize()
+        k_ms = cuda_ms(lambda: vs.adjoint_walk_kernel(cfg, sc, o, d, seed, dL, Lk), 3)
+        t0 = time.perf_counter()
+        Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed)
+        acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        agree = {"dim": equal_frac(st_k["dim"], st_t["dim"]),
+                 "alt_dim": equal_frac(st_k["alt_dim"], st_t["alt_dim"]),
+                 "reservoir_depth": equal_frac(res_k.depth, res_t.depth)}
+        rel = {"sigma": rel_l1(acc_k.sigma, acc_t.sigma),
+               "albedo": rel_l1(acc_k.albedo, acc_t.albedo)}
+        rec = {"phase": "adjoint", "scene": name, "integrator": integ, **kw, "rays": n,
+               "agreement": agree, "need": need, "rel_l1": rel,
+               "max_abs_err": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
+                                  float((acc_k.albedo - acc_t.albedo).abs().max())),
+               "grad_abs_sum": float(acc_t.sigma.abs().sum()),
+               "kernel_ms": k_ms, "plain_ms": p_ms, "events": int(st_k["steps"].sum()),
+               "card": card}
+        emit(rec)
+        if min(agree.values()) < need or max(rel.values()) > 1e-2 or not rec["grad_abs_sum"] > 0:
+            raise RuntimeError(f"adjoint {name} {integ} {kw}: kernel disagrees with the twin")
+        if keep is None:    # the janga DRT run feeds the drt phase
+            keep = dict(cfg=cfg, sc=sc, res=res_t, dL=dL, seed=seed, rec=rec)
+    return keep
+
+
+def phase_drt(card, vs, keep):
+    """The volpath_drt kernels + volpath_primal_state vs the twin's
+    delayed DRT term on the janga reservoirs of the adjoint phase."""
+    import torch
+    from uivr_tpu_torch.integrators import volpath_flat
+    from uivr_tpu_torch.integrators.volpathsimple import _reservoir_get
+    from uivr_tpu_torch.scene.gradients import init_accum
+    cfg, sc, res, dL, seed = (keep[k] for k in ("cfg", "sc", "res", "dL", "seed"))
+    adjoint = _reservoir_get(res) * dL
+    timer = Timer()
+    kd = kernel_drt(vs, cfg, sc, seed, res, adjoint, timer)
+    plain = plain_drt(cfg, sc, seed, res, adjoint)
+    acc_t = init_accum(sc.medium, need_emission=False)
+    t0 = time.perf_counter()
+    volpath_flat._drt_backward_flat(cfg, sc, seed, res, adjoint, acc_t)
+    torch.cuda.synchronize()
+    plain_total = (time.perf_counter() - t0) * 1e3
+    out = kd["out"]
+    counts = [int(c) for c in kd["counts"]]
+    agree = {k: equal_frac(out[k], plain[k]) for k in ("t_sel", "wsum", "found")}
+    both = out["active"] & plain["ps"].active
+    rel = {"sigma": rel_l1(kd["acc"].sigma, acc_t.sigma),
+           "albedo": rel_l1(kd["acc"].albedo, acc_t.albedo)}
+    rec = {"phase": "drt", "scene": "janga-smoke", "vertices": int(res.active.sum()),
+           "K_A": counts[0], "K_B": counts[1], "K_A_plain": plain["k_a"],
+           "K_B_plain": plain["k_b"], "agreement": agree, "need": 0.90, "rel_l1": rel,
+           "path_state_agreement": equal_frac(kd["ps"].active, plain["ps"].active),
+           "recursive_L_agreement": lane_agreement(kd["rec_L"][both], plain["rec_L"][both]),
+           "max_abs_err": {
+               "volpath_drt_walk": float((out["wsum"] - plain["wsum"]).abs().max()),
+               "volpath_drt_nee": float((out["nee"][both] - plain["nee"][both]).abs().max()),
+               "volpath_drt_phase": float((kd["ps"].d_w[both] - plain["ps"].d_w[both]).abs().max()),
+               "volpath_primal_state": float((kd["rec_L"][both] - plain["rec_L"][both]).abs().max()),
+               "volpath_drt_scatter": float((kd["acc"].sigma - acc_t.sigma).abs().max())},
+           "kernel_ms": timer.parts, "plain_ms": dict(plain["ms"], total=plain_total),
+           "card": card}
+    emit(rec)
+    if counts != [plain["k_a"], plain["k_b"]] or min(agree.values()) < 0.90 \
+            or max(rel.values()) > 1e-2:
+        raise RuntimeError("drt: the kernels disagree with the twin")
+    return rec
+
+
+def timed_step(vs, st, b, params, opt_state, ref_images, it, base_seed=988378, batch=32768):
+    """One training step part by part (CUDA events), as
+    opt.loop._make_step runs it; returns the parts, the gradients and the
+    kernels' inputs for the kernels line."""
+    import torch
+    from uivr_tpu_torch.core.rng import sample_tea_32
+    from uivr_tpu_torch.integrators.volpathsimple import _reservoir_get
+    from uivr_tpu_torch.opt import adam_step, enforce_valid_params, learning_rates, losses
+    from uivr_tpu_torch.opt.loop import gather_ref_values
+    from uivr_tpu_torch.render import batched
+    from uivr_tpu_torch.scene.gradients import finalize_accum
+    from uivr_tpu_torch.scene.medium import MediumParams
+    cfg = st.integrator
+    timer = Timer()
+    seed, _ = sample_tea_32(2 * it, base_seed)
+    seed_grad, _ = sample_tea_32(2 * it + 1, base_seed)
+    sidx, pix = batched.sample_batch_pixels(seed, b.cameras.n_sensors, b.film_size, batch,
+                                            sensors=b.sensors, device=ref_images.device)
+    ref = gather_ref_values(ref_images, sidx, pix)
+    scene = batched._scene(st, params, b.emitter, b.cameras, b.to_world)
+    timer("pixels_scene")
+    img = batched._primal_image(st, scene, b.cameras, sidx, pix, seed)
+    timer("forward")
+    img.requires_grad_(True)
+    loss = losses.l1(img, ref)
+    g_img, = torch.autograd.grad(loss, img)
+    timer("loss")
+    sub_seed, _ = sample_tea_32(seed_grad, 39)
+    o, d = batched._expand_rays(b.cameras, sidx, pix, st.film_size, st.spp_grad, sub_seed)
+    rep = torch.arange(batch * st.spp_grad, device=o.device) // st.spp_grad
+    dL = (g_img[rep] / st.spp_grad).contiguous()
+    timer("adjoint_rays")
+    L, _ = vs.sample_primal_kernel(cfg, scene, o, d, seed_grad)
+    timer("replay")
+    acc, res, stats = vs.adjoint_walk_kernel(cfg, scene, o, d, seed_grad, dL, L)
+    timer("adjoint")
+    adjoint = _reservoir_get(res) * dL
+    kd = kernel_drt(vs, cfg, scene, seed_grad, res, adjoint, timer)
+    grads = finalize_accum(acc, scene.medium)
+    grads = MediumParams(grads.sigma_t + kd["acc"].sigma, grads.albedo + kd["acc"].albedo,
+                         grads.emission)
+    timer("grads_sum")
+    lr = learning_rates(5e-3, 0, it, 6000, {"albedo": 2.0})
+    new_p, _ = adam_step(params, grads, opt_state, lr)
+    new_p = enforce_valid_params(new_p, b.max_density)
+    timer("adam_projection")
+    return dict(parts=timer.parts, loss=float(loss.detach()), grads=grads, new_params=new_p,
+                adj_in=(cfg, scene, o, d, seed_grad, dL, L), adj_stats=stats,
+                drt_in=(cfg, scene, seed_grad, res, adjoint), kd=kd)
+
+
+def phase_train(card, dev, vs, janga, out_dir):
+    """run_optimization at full width (3 iterations of volpathsimple-drt on
+    janga-smoke, 128^3 grids trained), then one step timed part by part
+    from the constant start and one from the ground-truth grids."""
+    import torch
+    from uivr_tpu_torch.config import get_int_config
+    from uivr_tpu_torch.core import vol_io
+    from uivr_tpu_torch.integrators import volpath_flat
+    from uivr_tpu_torch.opt import OptimizationConfig, adam_init, loop, render_references
+    from uivr_tpu_torch.render import RenderSettings
+    preset, b, _ = janga
+    cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
+    ref_spp = 64
+    t0 = time.perf_counter()
+    refs = render_references(b, RenderSettings(integrator=cfg, medium=b.medium_cfg,
+                                               film_size=b.film_size, spp=ref_spp,
+                                               spp_grad=ref_spp),
+                             str(out_dir / "references"), spp=ref_spp, overwrite=True)
+    ref_s = time.perf_counter() - t0
+    opt = OptimizationConfig(name="janga-smoke/volpathsimple-drt", spp=16, n_iter=3,
+                             lr=5e-3, primal_spp_factor=64, batch_size=32768,
+                             upsample=None, preview_stride=0, checkpoint_stride=2,
+                             render_initial=False, preview_spp=16)
+    steps = []
+    make_step = loop._make_step
+
+    def timed_make_step(*a, **k):
+        step = make_step(*a, **k)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            steps.append({"seconds": time.perf_counter() - t, "loss": float(out[2])})
+            return out
+        return run
+
+    for k in vs.LAUNCHES:
+        vs.LAUNCHES[k] = 0
+    for k in volpath_flat.CALLS:
+        volpath_flat.CALLS[k] = 0
+    loop._make_step = timed_make_step
+    try:
+        t0 = time.perf_counter()
+        final = loop.run_optimization(str(out_dir / "train"), opt, b, cfg, ref_images=refs,
+                                      resume=False, verbose=False)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+    finally:
+        loop._make_step = make_step
+    launches = dict(vs.LAUNCHES)
+    plain_calls = dict(volpath_flat.CALLS)
+    vols = {}
+    for tag, grids in (("initial", b.start_from), ("final", final)):
+        for key in ("sigma_t", "albedo"):
+            data, _ = vol_io.read_vol(str(out_dir / "train" / "params" / f"{tag}-medium1_{key}.vol"))
+            vols[f"{tag}_{key}"] = bool(np.array_equal(data, getattr(grids, key).cpu().numpy()))
+    changed = {k: not torch.equal(getattr(final, k), getattr(b.start_from, k))
+               for k in ("sigma_t", "albedo")}
+
+    # one step part by part, from the constant start and from the truth
+    st = RenderSettings(integrator=cfg, medium=b.medium_cfg, film_size=b.film_size,
+                        spp=16 * 64, spp_grad=16)
+    ref_dev = torch.as_tensor(refs, device=dev)
+    start = timed_step(vs, st, b, b.start_from, adam_init(b.start_from), ref_dev, 0)
+    truth = timed_step(vs, st, b, b.params, adam_init(b.params), ref_dev, 0)
+    g = start["grads"]
+    grads_ok = all(bool(torch.isfinite(x).all()) and float(x.abs().sum()) > 0
+                   for x in (g.sigma_t, g.albedo))
+    rec = {"phase": "train", "scene": "janga-smoke", "integrator": "volpathsimple-drt",
+           "batch": 32768, "spp_primal": 1024, "spp_grad": 16, "grid": list(b.params.sigma_t.shape),
+           "ref_spp": ref_spp, "references_s": ref_s, "run_s": run_s, "iterations": steps,
+           "launches": launches, "plain_twin_calls": plain_calls,
+           "checkpoints_read_back": vols, "params_changed": changed,
+           "grads_finite_nonzero": grads_ok,
+           "step_parts_ms_start": start["parts"], "step_loss_start": start["loss"],
+           "step_parts_ms_truth": truth["parts"], "step_loss_truth": truth["loss"],
+           "card": card}
+    emit(rec)
+    missing = [k for k in TRAIN_KERNELS if not launches[k] > 0]
+    if missing or any(plain_calls.values()):
+        raise RuntimeError(f"training did not run through the kernels: missing {missing}, "
+                           f"plain twin calls {plain_calls}")
+    if not (grads_ok and all(changed.values()) and all(vols.values()) and len(steps) == 3
+            and all(math.isfinite(s_["loss"]) for s_ in steps)):
+        raise RuntimeError("training step checks failed")
+    return rec, start, truth
+
+
+def phase_cli(card, out_dir):
+    """The reproduce CLI on tiny-cube: 20 iterations at batch 557."""
+    import json as json_
+    from uivr_tpu_torch.cli import reproduce
+    outputs = out_dir / "cli"
+    if outputs.exists():
+        import shutil
+        shutil.rmtree(outputs)
+    t0 = time.perf_counter()
+    reproduce.main(["--config", "tiny-cube", "--integrator", "volpathsimple-drt",
+                    "--scale", "0.034", "--ref-spp", "16", "--outputs", str(outputs)])
+    dt = time.perf_counter() - t0
+    run = outputs / "tiny-cube" / "volpathsimple-drt"
+    with open(run / "metrics.jsonl") as f:
+        recs = [json_.loads(ln) for ln in f]
+    losses_ = [r["loss"] for r in recs if "loss" in r]
+    final = run / "params" / "final-medium1_sigma_t.vol"
+    rec = {"phase": "cli", "command": "reproduce --config tiny-cube --integrator "
+           "volpathsimple-drt --scale 0.034 --ref-spp 16", "seconds": dt,
+           "losses": losses_, "final_checkpoint": final.exists(), "card": card}
+    emit(rec)
+    if not (losses_ and all(math.isfinite(x) for x in losses_) and final.exists()):
+        raise RuntimeError("cli: no losses or no final checkpoint")
+
+
+def training_kernels(vs, card, train, step, adj, drt):
+    """Kernel-line entries of the training path's kernels, at the shapes a
+    full-width janga-smoke step gives them (``step``: the timed step from
+    the ground-truth grids, whose walks are as long as late in a run)."""
+    import ctypes
+    import torch
+    from uivr_tpu_torch.scene.gradients import init_accum
+    per_step = {k: train["launches"][k] / len(train["iterations"]) for k in TRAIN_KERNELS}
+    cfg, scene, o, d, seed, dL, L = step["adj_in"]
+    n = o.shape[0]
+    acc = init_accum(scene.medium, need_emission=False)
+    a, res, stats = vs.adjoint_params(cfg, scene, o, d, seed, dL, L, acc)   # kept alive
+    lib = vs._load("adjoint")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def adj_launch():
+        if lib.volpath_adjoint_launch(ctypes.byref(a), stream):
+            raise RuntimeError("volpath_adjoint launch failed")
+    adj_launch()
+    a_ms = cuda_ms(adj_launch, 3)
+    del res, stats
+    (a_bound, a_by), a_counts = adjoint_bound(n, step["adj_stats"], cfg)
+    kd = step["kd"]
+    ps = kd["ps"]
+    rec_seed = 0x7177
+    s_ms = cuda_ms(lambda: vs.sample_primal_kernel(cfg, scene, None, None, rec_seed,
+                                                   path_state=ps), 3)
+    steps = int(kd["rec_stats"]["steps"].sum())
+    extra = int(kd["rec_stats"]["dim"].sum()) - 2 * steps
+    m, em = scene.medium, scene.emitter
+    tables = (m.grid.numel() + m.majorant_grid.numel()
+              + sum(t.numel() for t in (em.data, em.alias_tab, em.row_pmf, em.cond_pmf))) * 4
+    s_bound, s_by = bound(n * (1 + 4 + 36 + 8) + tables + n * 13,
+                          FLOP_PER_STEP * steps + FLOP_PER_EXTRA_DRAW * extra)
+    d_bounds, d_counts = drt_bounds(n, kd, cfg)
+    src = "uivr_tpu_torch/ops/csrc/"
+    out = [
+        {"name": "volpath_adjoint", "route": "cuda", "source": src + "volpath_adjoint.cu",
+         "replaces": "uivr_tpu/ops/volpath_step.py:673", "launches": per_step["volpath_adjoint"],
+         "max_abs_err": adj["max_abs_err"], "ms": a_ms, "plain_ms": adj["plain_ms"],
+         "plain_shape": f"{adj['rays']} rays", "bound_ms": a_bound, "bound_by": a_by,
+         "library_ms": None, "agreement": min(adj["agreement"].values()),
+         "shape": f"{n} adjoint rays, janga-smoke step on the ground truth", **a_counts},
+        {"name": "volpath_primal_state", "route": "cuda", "source": src + "volpath_primal.cu",
+         "replaces": "uivr_tpu/ops/volpath_step.py:303 (path_state entry)",
+         "launches": per_step["volpath_primal_state"],
+         "max_abs_err": drt["max_abs_err"]["volpath_primal_state"], "ms": s_ms,
+         "plain_ms": drt["plain_ms"]["volpath_primal_state"],
+         "plain_shape": f"{drt['vertices']} path states", "bound_ms": s_bound,
+         "bound_by": s_by, "library_ms": None, "agreement": drt["recursive_L_agreement"],
+         "shape": f"{n} path states, janga-smoke step on the ground truth",
+         "tracking_steps": steps},
+    ]
+    replaces = {"volpath_drt_walk": "uivr_tpu/tracking/trackers.py:201",
+                "volpath_drt_nee": "uivr_tpu/integrators/volpathsimple.py:95",
+                "volpath_drt_phase": "uivr_tpu/integrators/volpath_flat.py:697",
+                "volpath_drt_scatter": "uivr_tpu/integrators/volpath_flat.py:720"}
+    for name in DRT_KERNELS:
+        part = name.replace("volpath_", "")
+        b_ms, b_by = d_bounds[name]
+        out.append({"name": name, "route": "cuda", "source": src + "volpath_drt.cu",
+                    "replaces": replaces[name], "launches": per_step[name],
+                    "max_abs_err": drt["max_abs_err"][name], "ms": step["parts"][part],
+                    "plain_ms": drt["plain_ms"][name],
+                    "plain_shape": f"{drt['vertices']} reservoir vertices",
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "agreement": min(drt["agreement"].values()),
+                    "shape": f"{n} reservoirs, janga-smoke step on the ground truth",
+                    **d_counts})
+    return out
 
 
 def main():
@@ -164,18 +706,20 @@ def main():
     print(card, flush=True)
     t0 = time.time()
     fmad_proc, fmad_lib = build_fmad_variant()
-    vs._load()
+    vs.build()      # one nvcc per source, all started together
+    for name in vs.LIBS:
+        vs._load(name)
     build_s = time.time() - t0
     fmad_log, _ = fmad_proc.communicate()
     if fmad_proc.returncode != 0:
         raise RuntimeError(f"nvcc --fmad=true failed:\n{fmad_log}")
-    regs = [ln.strip() for ln in vs.BUILD["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
-          "library": str(vs.BUILD["path"].relative_to(HERE)),
-          "build_s": round(build_s, 3), "ptxas": regs})
+          "libraries": {k: str(b["path"].relative_to(HERE)) for k, b in vs.BUILD.items()},
+          "build_s": round(build_s, 3),
+          "nvcc_s": {k: b["seconds"] for k, b in vs.BUILD.items()},
+          "ptxas": {k: ptxas_report(b["log"]) for k, b in vs.BUILD.items()}})
 
     rs = np.random.RandomState(20260417)
     # ---------------------------------------------------------- 2. tea
@@ -358,9 +902,20 @@ def main():
          "shape": f"{n} rays, janga-smoke sensor 0", "tracking_steps": steps,
          "extra_draws": extra_draws},
     ]
-    emit({"kernels": kernels, "card": card})
     if kernels[1]["agreement"] < 0.90:
         raise RuntimeError("main-path chunk: kernel disagrees with the plain twin")
+
+    # ---------------------------------------------------------- 6-9. training
+    adj = phase_adjoint(card, dev, vs, janga, cube, random_pixel_rays)
+    drt = phase_drt(card, vs, adj)
+    train, _, truth = phase_train(card, dev, vs, janga, out_dir)
+    phase_cli(card, out_dir)
+    for k in kernels:
+        k["launches_per_train_step"] = train["launches"].get(k["name"], 0) / 3
+    kernels += training_kernels(vs, card, train, truth, adj["rec"], drt)
+
+    # ---------------------------------------------------------- 10. kernels
+    emit({"kernels": kernels, "card": card})
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise RuntimeError("a kernel timing is not finite")
 

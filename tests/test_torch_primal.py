@@ -81,7 +81,7 @@ def _host_lane_library():
         pytest.skip("g++ is not installed")
     src = ("#define __host__\n#define __device__\n#include \"volpath_lane.cuh\"\n"
            "extern \"C\" void trace_all(const uivr::PrimalParams* p) {\n"
-           "  for (int64_t i = 0; i < p->n; ++i) uivr::trace_lane(*p, i);\n}\n"
+           "  for (int64_t i = 0; i < p->n; ++i) uivr::primal_lane(*p, i, false);\n}\n"
            "extern \"C\" int params_size() { return (int)sizeof(uivr::PrimalParams); }\n")
     h = hashlib.sha256(src.encode())
     for name in ("rng.cuh", "volpath_lane.cuh"):

@@ -75,3 +75,36 @@ def assert_lanes_agree(L_ref, L, tol_frac=0.025, atol=1e-5):
     assert agree > 1.0 - tol_frac, f"lane agreement {agree}"
     np.testing.assert_allclose(L_ref.mean(0), L.mean(0), rtol=0.05, atol=5e-3)
     return agree
+
+
+def host_library(src: str, tag: str):
+    """Build C++ ``src`` (which includes the kernels' ``.cuh`` lane headers
+    with ``__host__``/``__device__`` defined empty) with g++ into a ctypes
+    library, cached under ``build/`` by a hash of the source and headers;
+    skips the test where g++ is missing."""
+    import ctypes
+    import hashlib
+    import os
+    import shutil
+    import subprocess
+
+    import pytest
+
+    from uivr_tpu_torch.ops import volpath_step
+
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("g++ is not installed")
+    h = hashlib.sha256(src.encode())
+    for name in volpath_step.HEADERS:
+        h.update((volpath_step.CSRC / name).read_bytes())
+    out = volpath_step.build_dir() / "host" / f"lib{tag}-{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off",
+                        "-shared", "-fPIC", "-I", str(volpath_step.CSRC), "-",
+                        "-o", str(tmp)], input=src, text=True, check=True,
+                       capture_output=True)
+        tmp.replace(out)
+    return ctypes.CDLL(str(out))

@@ -2,18 +2,21 @@
 
 The JAX package ``uivr_tpu`` is the reference; this package keeps its module
 layout so each counterpart sits at the same path.  It imports ``torch`` and
-never ``jax``.  The primal volumetric render runs through a hand-written
-CUDA kernel for Hopper (``ops/csrc/volpath_primal.cu``) on ``cuda`` tensors
-and through its plain PyTorch twin (``integrators/volpath_flat.py``) on
-``cpu`` tensors.
+never ``jax``.  On ``cuda`` tensors the primal render, the path-replay
+adjoint and the delayed DRT term run through hand-written CUDA kernels for
+Hopper (``ops/csrc/``); on ``cpu`` tensors through their plain PyTorch
+twins (``integrators/volpath_flat.py``).
 
-  core/        device selection, counter-based RNG, ray/box math, grids, EXR
-  scene/       cameras, emitters, phase functions, medium, scene tuples
+  core/        device selection, counter-based RNG, ray/box math, grids, EXR, .vol
+  scene/       cameras, emitters, phase functions, medium, gradient accumulators
   config/      procedural scenes and the scene/integrator registries
-  integrators/ the flat (one tracking step per iteration) primal estimator
+  tracking/    wavefront-counter tracking loops of the delayed DRT term
+  integrators/ the flat (one tracking step per iteration) primal and adjoint
   ops/         the CUDA kernels, their build, wrappers and launch counters
-  render/      full-frame and batched primal rendering
-  cli/         ``python -m uivr_tpu_torch.cli.render``
+  render/      full-frame rendering and the differentiable batch render op
+  opt/         losses, Adam/SGD, schedules, checkpoints, the optimization loop
+  utils/       image helpers
+  cli/         ``python -m uivr_tpu_torch.cli.render`` and ``.cli.reproduce``
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,6 @@
 from .scenes import (  # noqa: F401
-    SceneBundle, bundle_from_numpy, cube_test_grids, cube_test_scene,
+    SceneBundle, adam_state_from_numpy, bundle_from_numpy, cube_test_grids,
+    cube_test_scene, params_from_numpy,
     procedural_sky, procedural_smoke_grids, smoke_scene,
 )
 from .registry import (  # noqa: F401

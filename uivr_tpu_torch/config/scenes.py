@@ -1,9 +1,10 @@
 """Procedural scene builders.
 
 Port of ``uivr_tpu/config/scenes.py`` (the cube test scene and the smoke
-plume stand-in), plus :func:`bundle_from_numpy`, which builds a bundle from
-plain numpy arrays: the way scenes and grids are carried across from the
-JAX package.
+plume stand-in), plus :func:`bundle_from_numpy`, :func:`params_from_numpy`
+and :func:`adam_state_from_numpy`, which build a bundle, grids and Adam
+moments from plain numpy arrays: the way scenes and training state are
+carried across from the JAX package.
 """
 from __future__ import annotations
 
@@ -196,3 +197,24 @@ def bundle_from_numpy(d: dict, device=None) -> SceneBundle:
         cameras=cams, to_world=np.asarray(d["to_world"], np.float32),
         film_size=tuple(int(x) for x in d["film_size"]),
         max_depth=int(d.get("max_depth", 64)), start_from=start)
+
+
+def params_from_numpy(d: dict, device=None) -> MediumParams:
+    """Grids from numpy arrays under keys ``sigma_t``, ``albedo`` and
+    ``emission`` (a copy, on ``device``)."""
+    device = resolve_device(device)
+    return MediumParams(*[torch.as_tensor(np.array(d[k], np.float32), device=device)
+                          for k in MediumParams._fields])
+
+
+def adam_state_from_numpy(d: dict, device=None):
+    """An AdamState from the full-state checkpoint layout: ``step`` and
+    ``mu.<grid>``, ``nu.<grid>`` for each grid."""
+    from ..opt.optimizer import AdamState
+    device = resolve_device(device)
+
+    def grids(prefix):
+        return params_from_numpy({k: d[f"{prefix}.{k}"] for k in MediumParams._fields},
+                                 device=device)
+
+    return AdamState(step=int(d["step"]), mu=grids("mu"), nu=grids("nu"))

@@ -1,6 +1,7 @@
 """Trilinearly interpolated voxel grids and majorant supergrids.
 
-Port of ``uivr_tpu/core/grids.py`` (sampling and majorant construction).
+Port of ``uivr_tpu/core/grids.py`` (sampling, its explicit pullback,
+majorant construction and trilinear resizing).
 Layout: ``data[D, H, W, C]`` with D = z slowest; positions in the local unit
 cube [0,1]^3 in (x, y, z) order; node-centred, clamped at the boundary.
 The TPU corner tables (row-gather workaround) have no counterpart here: the
@@ -57,6 +58,59 @@ def trilinear_sample(data: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     for k in range(1, 8):
         out = fma(vals[:, k], w[k][:, None], out)
     return out
+
+
+def trilinear_scatter(grad_acc: torch.Tensor, p: torch.Tensor,
+                      cot: torch.Tensor, mask: torch.Tensor = None
+                      ) -> torch.Tensor:
+    """Pullback of :func:`trilinear_sample`: add ``cot`` (n, C) times the
+    trilinear weights into the 8 corner nodes of ``grad_acc`` (D,H,W,C) at
+    points ``p`` (n, 3); ``mask`` (n,) zeroes lanes.  Unlike the reference,
+    which returns a new grid, this accumulates into ``grad_acc`` in place
+    and returns it (the adjoint's accumulators are private to it)."""
+    C = grad_acc.shape[-1]
+    idx, w = _corner_indices_weights(grad_acc.shape, p.to(grad_acc.dtype))
+    w = torch.stack(w, dim=-1)
+    if mask is not None:
+        w = w * mask.to(w.dtype)[:, None]
+    contrib = w[..., None] * cot[:, None, :]            # (n, 8, C)
+    grad_acc.view(-1, C).index_add_(0, idx.reshape(-1), contrib.reshape(-1, C))
+    return grad_acc
+
+
+def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of the reference's trilinear resize
+    (``jax.image.resize``: half-pixel centres, a triangle kernel widened by
+    the scale when shrinking, columns normalised to sum 1, samples outside
+    the input zeroed)."""
+    f32 = np.float32
+    scale = f32(n_out / n_in)
+    inv_scale = f32(1.0) / scale
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = ((np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale
+                - f32(0.0) * inv_scale - f32(0.5))
+    x = np.abs(sample_f[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x).astype(f32)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_trilinear(data: torch.Tensor, new_res: Tuple[int, int, int]
+                     ) -> torch.Tensor:
+    """Trilinear resampling of a (D,H,W,C) grid to ``new_res`` (D',H',W'),
+    as the reference's multi-resolution schedule does it."""
+    out = data
+    for axis, n_out in enumerate(new_res):
+        n_in = out.shape[axis]
+        if n_in == n_out:
+            continue
+        w = torch.as_tensor(_resize_weights(n_in, int(n_out)),
+                            device=data.device)
+        out = torch.movedim(torch.tensordot(out, w, dims=([axis], [0])), -1, axis)
+    return out.contiguous()
 
 
 def _axis_window_max(arr: torch.Tensor, axis: int, n_nodes: int,

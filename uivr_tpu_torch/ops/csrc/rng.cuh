@@ -1,7 +1,8 @@
 // TEA hash and unit float (K1): the counter-based RNG of the port.
 //
 // Replaces the in-kernel TEA of uivr_tpu/ops/volpath_step.py (tea_i32,
-// _unit_float).  uint32 arithmetic, bit-identical to uivr_tpu_torch/core/
+// _unit_float) and the wavefront Sampler's next_1d (uivr_tpu/core/
+// rng.py:83-92).  uint32 arithmetic, bit-identical to uivr_tpu_torch/core/
 // rng.py.  Host and device inlines, so a host compiler can build the lane
 // logic too (define __host__ and __device__ empty there).
 #pragma once
@@ -40,13 +41,39 @@ struct LaneRng {
     dim = 0;
     rounds = draw_rounds;
   }
-  // the draw at the current counter; the counter advances iff `consume`
-  __host__ __device__ float next(bool consume) {
-    uint32_t v0 = h, v1 = dim;
+  // the draw at counter d, without advancing
+  __host__ __device__ float at(uint32_t d) const {
+    uint32_t v0 = h, v1 = d;
     tea(v0, v1, rounds);
-    dim += consume ? 1u : 0u;
     return unit_float(v0);
   }
+  // the draw at the current counter; the counter advances iff `consume`
+  __host__ __device__ float next(bool consume) {
+    const float u = at(dim);
+    dim += consume ? 1u : 0u;
+    return u;
+  }
+  // a decorrelated stream of the same lane (lane_fork), counter at 0
+  __host__ __device__ LaneRng fork(uint32_t salt) const {
+    uint32_t v0 = h, v1 = salt;
+    tea(v0, v1, 6);
+    LaneRng r;
+    r.h = v0 ^ v1;
+    r.dim = 0;
+    r.rounds = rounds;
+    return r;
+  }
 };
+
+// The wavefront Sampler's draw at shared counter `dim` for lane `lane`:
+// a scalar pre-hash of (dim, seed), then a hash against the lane id.
+__host__ __device__ inline float wavefront_draw(uint32_t seed, uint32_t dim,
+                                                uint32_t lane) {
+  uint32_t h0 = dim, h1 = seed;
+  tea(h0, h1, 4);
+  uint32_t v0 = lane, v1 = h0 ^ h1;
+  tea(v0, v1, 8);
+  return unit_float(v0);
+}
 
 }  // namespace uivr

@@ -1,6 +1,9 @@
-// One lane of the primal volumetric path tracer (K2 + K3): the MAIN /
-// SHADOW / DONE tracking state machine of uivr_tpu_torch/integrators/
-// volpath_flat.py, run to completion for one ray.
+// One lane of the volumetric path tracer (K2 + K3): the MAIN / SHADOW /
+// DONE tracking state machine of uivr_tpu_torch/integrators/
+// volpath_flat.py, run to completion for one ray.  The loop is a template
+// on its hooks: PrimalHooks here give the primal estimate; AdjointHooks
+// (volpath_adjoint.cuh) add the REPLAY walk and the gradient scatters of
+// the adjoint on the same tracking step.
 //
 // Replaces uivr_tpu/ops/volpath_step.py:_step_kernel (adjoint=False,
 // k_cand=1), the XLA trilinear gather around it (_sigma_albedo_planes) and
@@ -38,6 +41,14 @@ struct PrimalParams {
   const float* env_alias;    // (eH*eW, 4) [prob, alias, pmf_self, pmf_alias]
   const float* env_row_pmf;  // (eH,)
   const float* env_cond_pmf; // (eH, eW)
+  // PathState entry (volpath_primal_state_kernel): lanes resume from these
+  const uint8_t* ps_active;  // (n,)
+  const int32_t* ps_depth;   // (n,)
+  const float* ps_o;         // (n, 3) local position
+  const float* ps_d_l;       // (n, 3) local direction
+  const float* ps_d_w;       // (n, 3) world direction
+  const float* ps_maxt;      // (n,)
+  const float* ps_last_pdf;  // (n,)
   int64_t n;
   int32_t D, H, W, Dc, Hc, Wc, env_H, env_W;
   int32_t emitter;           // 0 constant, 1 envmap
@@ -51,7 +62,7 @@ struct PrimalParams {
   float const_weight[3];     // constant emitter radiance / (1 / 4pi)
 };
 
-enum { DONE = 0, MAIN = 1, SHADOW = 2 };
+enum { DONE = 0, MAIN = 1, SHADOW = 2, REPLAY = 3 };
 
 constexpr float kInvFourPi = 0.07957747154594767f;   // 1 / (4 pi)
 constexpr float kPi = 3.141592653589793f;
@@ -270,10 +281,10 @@ __host__ __device__ inline V3 emitter_sample(const PrimalParams& P, float u0,
 }
 
 // ---------------------------------------------------------------- medium
-// Trilinear sigma (scaled) + albedo at local point p: 8 corner float4 reads,
-// summed as a forward fma chain in corner order (core/grids.py).
-__host__ __device__ inline void sigma_albedo(const PrimalParams& P, V3 p,
-                                             float& sig, V3& alb) {
+// Flat node indices and weights of the 8 trilinear corners at local point
+// p, in corner order (core/grids.py:_corner_indices_weights).
+__host__ __device__ inline void corners(const PrimalParams& P, V3 p,
+                                        int64_t idx[8], float w[8]) {
   const int dims[3] = {P.W, P.H, P.D};
   float f[3];
   int64_t i0[3], i1[3];
@@ -288,16 +299,28 @@ __host__ __device__ inline void sigma_albedo(const PrimalParams& P, V3 p,
   }
   const float fx = f[0], fy = f[1], fz = f[2];
   const float gx = 1.0f - fx, gy = 1.0f - fy, gz = 1.0f - fz;
-  const float w[8] = {gz * gy * gx, gz * gy * fx, gz * fy * gx, gz * fy * fx,
-                      fz * gy * gx, fz * gy * fx, fz * fy * gx, fz * fy * fx};
+  w[0] = gz * gy * gx; w[1] = gz * gy * fx; w[2] = gz * fy * gx; w[3] = gz * fy * fx;
+  w[4] = fz * gy * gx; w[5] = fz * gy * fx; w[6] = fz * fy * gx; w[7] = fz * fy * fx;
   const int64_t H = P.H, W = P.W;
-  float acc[4];
   for (int k = 0; k < 8; ++k) {
     const int64_t iz = (k & 4) ? i1[2] : i0[2];
     const int64_t iy = (k & 2) ? i1[1] : i0[1];
     const int64_t ix = (k & 1) ? i1[0] : i0[0];
+    idx[k] = (iz * H + iy) * W + ix;
+  }
+}
+
+// Trilinear sigma (scaled) + albedo at local point p: 8 corner float4 reads,
+// summed as a forward fma chain in corner order (core/grids.py).
+__host__ __device__ inline void sigma_albedo(const PrimalParams& P, V3 p,
+                                             float& sig, V3& alb) {
+  int64_t idx[8];
+  float w[8];
+  corners(P, p, idx, w);
+  float acc[4];
+  for (int k = 0; k < 8; ++k) {
     float v[4];
-    load4(P.grid + ((iz * H + iy) * W + ix) * 4, v);
+    load4(P.grid + idx[k] * 4, v);
     for (int c = 0; c < 4; ++c) acc[c] = k == 0 ? v[c] * w[0] : fmaf(v[c], w[k], acc[c]);
   }
   sig = acc[0] * P.scale;
@@ -331,53 +354,128 @@ __host__ __device__ inline float cell_step(const PrimalParams& P, V3 o, V3 wd,
   return P.majorant[(cz * P.Hc + cy) * P.Wc + cx];
 }
 
-// ---------------------------------------------------------------- the lane
-__host__ __device__ inline void trace_lane(const PrimalParams& P, int64_t i) {
-  const V3 ow = {P.o[3 * i], P.o[3 * i + 1], P.o[3 * i + 2]};
-  const V3 dw = {P.d[3 * i], P.d[3 * i + 1], P.d[3 * i + 2]};
-  LaneRng rng;
-  rng.init((uint32_t)i, P.seed, P.draw_rounds);
+// distance of a free-flight step against majorant sigma_maj
+__host__ __device__ inline float free_step(float sigma_maj, float u) {
+  return sigma_maj > 0.0f ? -log1p_r(-u) / fmaxf(sigma_maj, 1e-20f) : 1e30f;
+}
 
-  // _init_carry: enter the medium's unit cube
+__host__ __device__ inline V3 load3(const float* a, int64_t i) {
+  return {a[3 * i], a[3 * i + 1], a[3 * i + 2]};
+}
+
+__host__ __device__ inline void store3(float* a, int64_t i, V3 v) {
+  a[3 * i] = v.x;
+  a[3 * i + 1] = v.y;
+  a[3 * i + 2] = v.z;
+}
+
+// ---------------------------------------------------------------- the lane
+// One ray's walk state (the twin's _FlatCarry for one lane).
+struct LaneState {
+  V3 o, d_l, d_w;            // segment origin (local), directions
+  float t, maxt, last_pdf;
+  int depth, mode, post_mode, steps;
+  V3 thr, result;
+  bool escaped, has_scattered;
+  V3 sh_d, sh_base;          // shadow direction (local), contribution / Tr
+  float sh_t, sh_tmax, sh_tr;
+  LaneRng rng;
+};
+
+// _init_carry for a world ray: enter the medium's unit cube
+__host__ __device__ inline void init_from_ray(const PrimalParams& P, int64_t i,
+                                              LaneState& s) {
+  const V3 ow = load3(P.o, i), dw = load3(P.d, i);
+  s.rng.init((uint32_t)i, P.seed, P.draw_rounds);
   V3 ol = xform_dir(P.w2l, 4, ow);
   ol = {ol.x + P.w2l[3], ol.y + P.w2l[7], ol.z + P.w2l[11]};
-  V3 d_l = xform_dir(P.w2l, 4, dw);
+  s.d_l = xform_dir(P.w2l, 4, dw);
   float tn, tf;
-  ray_unit_cube(ol, d_l, tn, tf);
+  ray_unit_cube(ol, s.d_l, tn, tf);
   const bool active = (tn <= tf) && (tf > tn);
-  V3 o = {ol.x + tn * d_l.x, ol.y + tn * d_l.y, fmaf(tn, d_l.z, ol.z)};
-  V3 d_w = dw;
-  float t = 0.0f, maxt = active ? tf - tn : 0.0f;
-  int depth = 0, mode = active ? MAIN : DONE, post_mode = MAIN;
-  V3 thr = {1.0f, 1.0f, 1.0f}, result = {0.0f, 0.0f, 0.0f};
-  bool escaped = !active, has_scattered = false;
-  float last_pdf = 1.0f;
-  V3 sh_d = {0.0f, 0.0f, 0.0f}, sh_base = {0.0f, 0.0f, 0.0f};
-  float sh_t = 0.0f, sh_tmax = 0.0f, sh_tr = 0.0f;
-  int steps = 0;
+  s.o = {ol.x + tn * s.d_l.x, ol.y + tn * s.d_l.y, fmaf(tn, s.d_l.z, ol.z)};
+  s.d_w = dw;
+  s.t = 0.0f;
+  s.maxt = active ? tf - tn : 0.0f;
+  s.depth = 0;
+  s.mode = active ? MAIN : DONE;
+  s.escaped = !active;
+  s.has_scattered = false;
+  s.last_pdf = 1.0f;
+}
 
-  while (mode != DONE && steps < P.max_steps) {
-    ++steps;
-    const bool is_main = mode == MAIN, is_sh = mode == SHADOW;
-    const V3 wd = is_main ? d_l : sh_d;
-    const float wt = is_main ? t : sh_t;
-    const float wmax = is_main ? maxt : sh_tmax;
+// _init_carry for a PathState: a path resumed after a scatter
+__host__ __device__ inline void init_from_state(const PrimalParams& P, int64_t i,
+                                                LaneState& s) {
+  s.rng.init((uint32_t)i, P.seed, P.draw_rounds);
+  const bool active = P.ps_active[i] != 0;
+  s.o = load3(P.ps_o, i);
+  s.d_l = load3(P.ps_d_l, i);
+  s.d_w = load3(P.ps_d_w, i);
+  s.t = 0.0f;
+  s.maxt = P.ps_maxt[i];
+  s.depth = P.ps_depth[i];
+  s.mode = active ? MAIN : DONE;
+  s.escaped = false;
+  s.has_scattered = active;
+  s.last_pdf = P.ps_last_pdf[i];
+}
+
+__host__ __device__ inline void init_common(LaneState& s) {
+  s.post_mode = MAIN;
+  s.steps = 0;
+  s.thr = {1.0f, 1.0f, 1.0f};
+  s.result = {0.0f, 0.0f, 0.0f};
+  s.sh_d = {0.0f, 0.0f, 0.0f};
+  s.sh_base = {0.0f, 0.0f, 0.0f};
+  s.sh_t = 0.0f;
+  s.sh_tmax = 0.0f;
+  s.sh_tr = 0.0f;
+}
+
+// The tracking loop.  Hooks:
+//   kAdjoint               REPLAY walks exist (adjoint only)
+//   max_steps              tracking steps allowed per lane
+//   shadow_done(s, c)      a shadow walk ended with contribution c; returns
+//                          the lane's next mode
+//   main_event(s, real, fin_seg, t_cand, p, sig, alb)
+//                          a MAIN step, before the state changes
+//   replay(s, ...)         one REPLAY step (adjoint only)
+//   scattered(s)           after a scatter's draws
+template <class Hooks>
+__host__ __device__ inline void trace_lane(const PrimalParams& P, LaneState& s,
+                                           Hooks& h) {
+  while (s.mode != DONE && s.steps < h.max_steps) {
+    ++s.steps;
+    const bool is_main = s.mode == MAIN, is_sh = s.mode == SHADOW;
+    bool is_rp = false;
+    if constexpr (Hooks::kAdjoint) is_rp = s.mode == REPLAY;
+    const V3 wd = is_main ? s.d_l : s.sh_d;
+    float wt = is_main ? s.t : s.sh_t;
+    const float wmax = is_main ? s.maxt : s.sh_tmax;
+    float u_step, u_evt;
+    if constexpr (Hooks::kAdjoint) {
+      if (is_rp) wt = h.rp_t;
+    }
     float t_exit;
-    const float sigma_maj = cell_step(P, o, wd, wt, t_exit);
-
-    const float u_step = rng.next(true);
-    const float u_evt = rng.next(true);
-    const float step = sigma_maj > 0.0f
-                           ? -log1p_r(-u_step) / fmaxf(sigma_maj, 1e-20f)
-                           : 1e30f;
-    const float t_cand = wt + step;
+    const float sigma_maj = cell_step(P, s.o, wd, wt, t_exit);
+    if (is_rp) {   // the shadow walk's draws, re-read at the replay counter
+      if constexpr (Hooks::kAdjoint) {
+        u_step = s.rng.at(h.rp_dim);
+        u_evt = s.rng.at(h.rp_dim + 1u);
+      }
+    } else {
+      u_step = s.rng.next(true);
+      u_evt = s.rng.next(true);
+    }
+    const float t_cand = wt + free_step(sigma_maj, u_step);
     const float bound = fminf(t_exit, wmax);
     const bool collided = t_cand < bound;
     const bool fin_seg = !collided && t_exit >= wmax;
     const bool crossed = !collided && t_exit < wmax;
     const float t_next = collided ? t_cand : (crossed ? t_exit : wt);
 
-    const V3 p = step_point(o, t_cand, wd);
+    const V3 p = step_point(s.o, t_cand, wd);
     float sig = 0.0f, r = 0.0f, ratio = 1.0f;
     V3 alb = {0.0f, 0.0f, 0.0f};
     if (collided) {   // sigma and albedo matter only at a collision
@@ -386,109 +484,152 @@ __host__ __device__ inline void trace_lane(const PrimalParams& P, int64_t i) {
       ratio = fmaxf(1.0f - r, 0.0f);
     }
 
+    if constexpr (Hooks::kAdjoint) {
+      if (is_rp) {
+        h.replay(P, s, p, sig, sigma_maj, ratio, collided, fin_seg, t_next, u_evt);
+        continue;
+      }
+    }
+
     if (is_sh) {   // ratio tracking of the NEE shadow ray
       if (collided) {
-        sh_tr = sh_tr * ratio;
-        if (P.shadow_rr > 0.0f && sh_tr < P.shadow_rr && sh_tr > 0.0f)
-          sh_tr = u_evt < sh_tr * P.inv_shadow_rr ? P.shadow_rr : 0.0f;
+        s.sh_tr = s.sh_tr * ratio;
+        if (P.shadow_rr > 0.0f && s.sh_tr < P.shadow_rr && s.sh_tr > 0.0f)
+          s.sh_tr = u_evt < s.sh_tr * P.inv_shadow_rr ? P.shadow_rr : 0.0f;
       }
-      sh_t = t_next;
-      if (fin_seg || sh_tr <= 0.0f) {
-        result = {result.x + sh_base.x * sh_tr, result.y + sh_base.y * sh_tr,
-                  result.z + sh_base.z * sh_tr};
-        mode = post_mode;
+      s.sh_t = t_next;
+      if (fin_seg || s.sh_tr <= 0.0f) {
+        const V3 c = {s.sh_base.x * s.sh_tr, s.sh_base.y * s.sh_tr,
+                      s.sh_base.z * s.sh_tr};
+        s.mode = h.shadow_done(P, s, c);
       }
       continue;
     }
 
     // MAIN: delta tracking
     const bool real = collided && u_evt < r;
-    t = t_next;
+    h.main_event(P, s, real, fin_seg, t_cand, p, sig, alb);
+    s.t = t_next;
     if (fin_seg) {
-      escaped = true;
-      mode = DONE;
+      s.escaped = true;
+      s.mode = DONE;
     }
     if (!real) continue;
-    thr = {thr.x * alb.x, thr.y * alb.y, thr.z * alb.z};
-    depth += 1;
+    s.thr = {s.thr.x * alb.x, s.thr.y * alb.y, s.thr.z * alb.z};
+    s.depth += 1;
     // the RR draw is taken on every real collision, even with RR off
-    const float u_rr = rng.next(true);
-    if (depth >= P.max_depth) {
-      mode = DONE;
+    const float u_rr = s.rng.next(true);
+    if (s.depth >= P.max_depth) {
+      s.mode = DONE;
       continue;
     }
-    if (depth > P.rr_depth) {
-      const float q = fminf(fmaxf(fmaxf(thr.x, thr.y), thr.z), 0.99f);
+    if (s.depth > P.rr_depth) {
+      const float q = fminf(fmaxf(fmaxf(s.thr.x, s.thr.y), s.thr.z), 0.99f);
       const float qd = fmaxf(q, 1e-8f);
-      thr = {thr.x / qd, thr.y / qd, thr.z / qd};
+      s.thr = {s.thr.x / qd, s.thr.y / qd, s.thr.z / qd};
       if (u_rr >= q) {
-        mode = DONE;
+        s.mode = DONE;
         continue;
       }
     }
 
     // scatter: phase-sample the continuation (pdf and MIS use the incoming d_w)
-    const V3 d_in = d_w;
-    const float u_p1 = rng.next(true);
-    const float u_p2 = rng.next(true);
+    const V3 d_in = s.d_w;
+    const float u_p1 = s.rng.next(true);
+    const float u_p2 = s.rng.next(true);
     float ph_pdf;
-    d_w = phase_sample(P.phase_g, d_in, u_p1, u_p2, ph_pdf);
-    d_l = xform_dir(P.w2l, 4, d_w);
-    last_pdf = ph_pdf;
-    has_scattered = true;
-    o = p;
-    maxt = exit_dist(o, d_l);
-    t = 0.0f;
+    s.d_w = phase_sample(P.phase_g, d_in, u_p1, u_p2, ph_pdf);
+    s.d_l = xform_dir(P.w2l, 4, s.d_w);
+    s.last_pdf = ph_pdf;
+    s.has_scattered = true;
+    s.o = p;
+    s.maxt = exit_dist(s.o, s.d_l);
+    s.t = 0.0f;
     // a continuation with no room left ends the lane without escaping
-    const int resume = maxt <= 1e-7f ? DONE : MAIN;
+    const int resume = s.maxt <= 1e-7f ? DONE : MAIN;
 
-    if (!P.use_nee) {
-      mode = resume;
-      continue;
-    }
-    const float u_e1 = rng.next(true);
-    const float u_e2 = rng.next(true);
-    float ds_pdf;
-    V3 em_w;
-    const V3 ds_d = emitter_sample(P, u_e1, u_e2, ds_pdf, em_w);
-    post_mode = resume;
-    if (!(ds_pdf > 0.0f)) {
-      mode = resume;
-      continue;
-    }
-    const float phv = phase_eval(P.phase_g, d_in, ds_d);
-    const float s = phv * mis_weight(ds_pdf, phv);
-    sh_d = xform_dir(P.w2l, 4, ds_d);
-    sh_tmax = exit_dist(o, sh_d);
-    sh_base = {(thr.x * s) * em_w.x, (thr.y * s) * em_w.y, (thr.z * s) * em_w.z};
-    sh_t = 0.0f;
-    sh_tr = 1.0f;
-    mode = SHADOW;
-  }
-
-  // _finish: emitter radiance on escape, MIS-weighted against NEE
-  V3 L = result;
-  bool active_e = escaped;
-  if (P.hide_emitters) active_e = active_e && !(depth <= 0);
-  if (active_e) {
-    float w = 1.0f;
     if (P.use_nee) {
-      const float epdf = has_scattered ? emitter_pdf(P, d_w) : 0.0f;
-      w = mis_weight(last_pdf, epdf);
-    }
-    const V3 e = emitter_eval(P, d_w);
-    if (P.use_nee) {
-      L = {L.x + (thr.x * w) * e.x, L.y + (thr.y * w) * e.y, L.z + (thr.z * w) * e.z};
+      const float u_e1 = s.rng.next(true);
+      const float u_e2 = s.rng.next(true);
+      float ds_pdf;
+      V3 em_w;
+      const V3 ds_d = emitter_sample(P, u_e1, u_e2, ds_pdf, em_w);
+      s.post_mode = resume;
+      if (ds_pdf > 0.0f) {
+        const float phv = phase_eval(P.phase_g, d_in, ds_d);
+        const float k = phv * mis_weight(ds_pdf, phv);
+        s.sh_d = xform_dir(P.w2l, 4, ds_d);
+        s.sh_tmax = exit_dist(s.o, s.sh_d);
+        s.sh_base = {(s.thr.x * k) * em_w.x, (s.thr.y * k) * em_w.y,
+                     (s.thr.z * k) * em_w.z};
+        s.sh_t = 0.0f;
+        s.sh_tr = 1.0f;
+        s.mode = SHADOW;
+      } else {
+        s.mode = resume;
+      }
     } else {
-      L = {L.x + thr.x * e.x, L.y + thr.y * e.y, L.z + thr.z * e.z};
+      s.mode = resume;
+    }
+    h.scattered(s);
+  }
+}
+
+// _finish: emitter radiance on escape, MIS-weighted against NEE
+__host__ __device__ inline V3 finish_radiance(const PrimalParams& P,
+                                              const LaneState& s) {
+  V3 L = s.result;
+  bool active_e = s.escaped;
+  if (P.hide_emitters) active_e = active_e && !(s.depth <= 0);
+  if (active_e) {
+    const V3 e = emitter_eval(P, s.d_w);
+    if (P.use_nee) {
+      const float epdf = s.has_scattered ? emitter_pdf(P, s.d_w) : 0.0f;
+      const float w = mis_weight(s.last_pdf, epdf);
+      L = {L.x + (s.thr.x * w) * e.x, L.y + (s.thr.y * w) * e.y,
+           L.z + (s.thr.z * w) * e.z};
+    } else {
+      L = {L.x + s.thr.x * e.x, L.y + s.thr.y * e.y, L.z + s.thr.z * e.z};
     }
   }
-  P.L[3 * i] = L.x;
-  P.L[3 * i + 1] = L.y;
-  P.L[3 * i + 2] = L.z;
-  P.escaped[i] = escaped ? 1 : 0;
-  if (P.dims) P.dims[i] = rng.dim;
-  if (P.steps) P.steps[i] = steps;
+  return L;
+}
+
+// The primal estimate: shadow walks add their contribution.
+struct PrimalHooks {
+  static constexpr bool kAdjoint = false;
+  int max_steps;
+
+  __host__ __device__ int shadow_done(const PrimalParams&, LaneState& s, V3 c) {
+    s.result = {s.result.x + c.x, s.result.y + c.y, s.result.z + c.z};
+    return s.post_mode;
+  }
+  __host__ __device__ void main_event(const PrimalParams&, const LaneState&, bool,
+                                      bool, float, V3, float, V3) {}
+  __host__ __device__ void scattered(const LaneState&) {}
+};
+
+__host__ __device__ inline void write_primal(const PrimalParams& P, int64_t i,
+                                             const LaneState& s) {
+  store3(P.L, i, finish_radiance(P, s));
+  P.escaped[i] = s.escaped ? 1 : 0;
+  if (P.dims) P.dims[i] = s.rng.dim;
+  if (P.steps) P.steps[i] = s.steps;
+}
+
+// One primal lane from a world ray (from_state = false) or a PathState.
+__host__ __device__ inline void primal_lane(const PrimalParams& P, int64_t i,
+                                            bool from_state) {
+  LaneState s;
+  if (from_state) {
+    init_from_state(P, i, s);
+  } else {
+    init_from_ray(P, i, s);
+  }
+  init_common(s);
+  PrimalHooks h{P.max_steps};
+  trace_lane(P, s, h);
+  write_primal(P, i, s);
 }
 
 }  // namespace uivr

@@ -21,6 +21,11 @@
 // the grid read for events that cannot collide.  Persistent scheduling,
 // shared-memory majorants and warp-level compaction are later work.
 //
+// volpath_primal_state_kernel is the same lane started from a PathState
+// (K2's path_state entry): the recursive detached Li of the delayed DRT term
+// (uivr_tpu/integrators/volpath_flat.py:712-718, sample_primal_pallas with
+// path_state).
+//
 // tea_kernel (K1) exposes the inlined TEA hash for a bit-exact check.
 #include <cuda_runtime.h>
 
@@ -31,7 +36,13 @@ namespace {
 __global__ void __launch_bounds__(128)
 volpath_primal_kernel(const uivr::PrimalParams p) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < p.n) uivr::trace_lane(p, i);
+  if (i < p.n) uivr::primal_lane(p, i, false);
+}
+
+__global__ void __launch_bounds__(128)
+volpath_primal_state_kernel(const uivr::PrimalParams p) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < p.n) uivr::primal_lane(p, i, true);
 }
 
 __global__ void tea_kernel(const uint32_t* __restrict__ v0,
@@ -60,6 +71,14 @@ int volpath_primal_launch(const uivr::PrimalParams* params, void* stream) {
   if (params->n > 0) {
     volpath_primal_kernel<<<n_blocks(params->n), kThreads, 0,
                             (cudaStream_t)stream>>>(*params);
+  }
+  return (int)cudaGetLastError();
+}
+
+int volpath_primal_state_launch(const uivr::PrimalParams* params, void* stream) {
+  if (params->n > 0) {
+    volpath_primal_state_kernel<<<n_blocks(params->n), kThreads, 0,
+                                  (cudaStream_t)stream>>>(*params);
   }
   return (int)cudaGetLastError();
 }

@@ -1,23 +1,30 @@
-"""The hand-written Hopper kernels of the primal render: build, bind, wrap.
+"""The hand-written Hopper kernels of the path tracer: build, bind, wrap.
 
-Port of ``uivr_tpu/ops/volpath_step.py`` (its ``adjoint=False``, ``k_cand=1``
-step kernel and the host loops that run it).  The CUDA sources live in
-``csrc/``:
+Port of ``uivr_tpu/ops/volpath_step.py`` (its ``k_cand=1`` step kernel in
+primal and adjoint form, the host loops that run it) and of the delayed DRT
+term around it (``uivr_tpu/integrators/volpath_flat._drt_backward_flat``).
+The CUDA sources live in ``csrc/``:
 
-- ``rng.cuh``           TEA hash and unit float (K1)
-- ``volpath_lane.cuh``  one lane's MAIN/SHADOW/DONE tracking state machine
-                        with trilinear sigma+albedo reads and emitter NEE
-                        (K2, K3), run to completion per ray (K5's keying)
-- ``volpath_primal.cu`` the ``__global__`` kernels and ``extern "C"``
-                        launchers
+- ``rng.cuh``             TEA hash, unit float and the wavefront sampler's
+                          draw (K1)
+- ``volpath_lane.cuh``    one lane's tracking state machine with trilinear
+                          sigma+albedo reads and emitter NEE (K2, K3), run
+                          to completion per ray (K5's keying), a template on
+                          its hooks; world-ray and PathState entries
+- ``volpath_adjoint.cuh`` the adjoint hooks: REPLAY walk, PRB and
+                          transmittance cotangents, DRT reservoir (K4, K5)
+- ``volpath_drt.cuh``     the delayed DRT term's lanes
+- ``volpath_primal.cu``, ``volpath_adjoint.cu``, ``volpath_drt.cu``: the
+  ``__global__`` kernels and ``extern "C"`` launchers, one library each
 
-They are compiled with ``nvcc`` for ``sm_90a`` into a shared library under
-``build/uivr_tpu_torch/`` (keyed by a hash of the sources and flags) on
-first use, and loaded with ``ctypes``.  Each wrapper launches on PyTorch's
-current stream and counts its launches in :data:`LAUNCHES`.  On a ``cpu``
-tensor a wrapper runs the kernel's plain version instead
-(``core/rng.tea_plain``, ``integrators/volpath_flat.sample_primal``); on a
-``cuda`` tensor it launches the kernel or raises.
+Each ``.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+under ``build/uivr_tpu_torch/`` (keyed by a hash of the sources and flags);
+the first use starts all missing builds at once, and the libraries are
+loaded with ``ctypes``.  Each wrapper launches on PyTorch's current stream
+and counts its launches in :data:`LAUNCHES`.  On ``cpu`` tensors a wrapper
+runs the kernel's plain version instead (``core/rng.tea_plain`` and the
+twins in ``integrators/volpath_flat.py``); on ``cuda`` tensors it launches
+the kernel or raises.
 """
 from __future__ import annotations
 
@@ -31,25 +38,33 @@ from pathlib import Path
 
 import torch
 
-from ..core.rng import _DRAW_ROUNDS, _M32, tea_plain
+from ..core.rng import _DRAW_ROUNDS, _M32, sample_tea_32, tea_plain
 from ..integrators import volpath_flat
-from ..integrators.volpathsimple import VolpathConfig
+from ..integrators.volpathsimple import (PathState, VolpathConfig, _Reservoir,
+                                         _reservoir_get)
 from ..scene.emitters import ConstantEmitter, EnvmapEmitter
+from ..scene.gradients import GradAccum, finalize_accum, init_accum
 from ..scene.scene import Scene
 
 # kernel launches, by kernel, since the process started (or a caller reset)
-LAUNCHES = {"volpath_primal": 0, "tea": 0}
+LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
+            "volpath_adjoint": 0, "volpath_drt_walk": 0, "volpath_drt_nee": 0,
+            "volpath_drt_phase": 0, "volpath_drt_scatter": 0}
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rng.cuh", "volpath_lane.cuh", "volpath_primal.cu")
+HEADERS = ("rng.cuh", "volpath_lane.cuh", "volpath_adjoint.cuh",
+           "volpath_drt.cuh")
+# library -> its CUDA source
+LIBS = {"primal": "volpath_primal.cu", "adjoint": "volpath_adjoint.cu",
+        "drt": "volpath_drt.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-# what the last build did: seconds (None when the library was cached) and
-# nvcc's output, which holds ptxas' register and spill report
-BUILD = {"seconds": None, "log": "", "path": None}
+# what the last build of each library did: seconds (None when the library
+# was cached), nvcc's output (ptxas' register and spill report) and path
+BUILD = {name: {"seconds": None, "log": "", "path": None} for name in LIBS}
 
-_lib = None
+_libs = {}
 
 
 def build_dir() -> Path:
@@ -66,28 +81,42 @@ def _nvcc() -> str:
     return nvcc
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
+def lib_path(name: str) -> Path:
+    """Where library ``name`` is built, keyed by its sources and flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((CSRC / name).read_bytes())
-    out_dir = build_dir()
-    lib = out_dir / f"libuivr_primal-{h.hexdigest()[:16]}.so"
-    BUILD["path"] = lib
-    if lib.exists():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.time()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC / "volpath_primal.cu")],
-                          capture_output=True, text=True)
-    BUILD["seconds"] = time.time() - t0
-    BUILD["log"] = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD['log']}")
-    os.replace(tmp, lib)
-    return lib
+    for src in HEADERS + (LIBS[name],):
+        h.update((CSRC / src).read_bytes())
+    return build_dir() / f"libuivr_{name}-{h.hexdigest()[:16]}.so"
+
+
+def build() -> dict:
+    """Compile every library whose build is missing, one ``nvcc`` per
+    source, all started together; returns {name: path}."""
+    paths = {name: lib_path(name) for name in LIBS}
+    jobs = {}
+    for name, lib in paths.items():
+        BUILD[name]["path"] = lib
+        if lib.exists():
+            continue
+        lib.parent.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                                 str(CSRC / LIBS[name])],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        jobs[name] = (proc, tmp, time.time())
+    failed = []
+    for name, (proc, tmp, t0) in jobs.items():
+        out, _ = proc.communicate()
+        BUILD[name]["seconds"] = time.time() - t0
+        BUILD[name]["log"] = out
+        if proc.returncode != 0:
+            failed.append(f"{LIBS[name]}: nvcc failed ({proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
 class PrimalParams(ctypes.Structure):
@@ -95,7 +124,9 @@ class PrimalParams(ctypes.Structure):
     _fields_ = (
         [(f, ctypes.c_void_p) for f in (
             "o", "d", "L", "escaped", "dims", "steps", "grid", "majorant",
-            "env_data", "env_alias", "env_row_pmf", "env_cond_pmf")]
+            "env_data", "env_alias", "env_row_pmf", "env_cond_pmf",
+            "ps_active", "ps_depth", "ps_o", "ps_d_l", "ps_d_w", "ps_maxt",
+            "ps_last_pdf")]
         + [("n", ctypes.c_int64)]
         + [(f, ctypes.c_int32) for f in (
             "D", "H", "W", "Dc", "Hc", "Wc", "env_H", "env_W", "emitter",
@@ -108,23 +139,70 @@ class PrimalParams(ctypes.Structure):
            ("radiance", ctypes.c_float * 3), ("const_weight", ctypes.c_float * 3)])
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        lib.volpath_primal_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-        lib.volpath_primal_launch.restype = ctypes.c_int
-        lib.tea_launch.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-        lib.tea_launch.restype = ctypes.c_int
-        lib.uivr_error_string.argtypes = [ctypes.c_int]
-        lib.uivr_error_string.restype = ctypes.c_char_p
-        lib.primal_params_size.restype = ctypes.c_int
-        if lib.primal_params_size() != ctypes.sizeof(PrimalParams):
-            raise RuntimeError("PrimalParams layout differs between the CUDA "
-                               "source and its ctypes mirror")
-        _lib = lib
-    return _lib
+class AdjParams(ctypes.Structure):
+    """Mirror of ``uivr::AdjParams`` in ``csrc/volpath_adjoint.cuh``."""
+    _fields_ = (
+        [("P", PrimalParams)]
+        + [(f, ctypes.c_void_p) for f in (
+            "L_in", "dL", "g_sigma", "g_albedo", "res_wsum", "res_cur_w",
+            "res_depth", "res_o", "res_d_l", "res_d_w", "res_maxt",
+            "res_active", "alt_dims", "events")]
+        + [(f, ctypes.c_int32) for f in (
+            "use_drt", "use_drt_subsampling", "use_drt_mis",
+            "trans_grad_samples")])
+
+
+class DrtParams(ctypes.Structure):
+    """Mirror of ``uivr::DrtParams`` in ``csrc/volpath_drt.cuh``."""
+    _fields_ = (
+        [("P", PrimalParams)]
+        + [(f, ctypes.c_void_p) for f in (
+            "res_o", "res_d_l", "res_d_w", "res_maxt", "res_depth",
+            "res_active", "adjoint", "t_sel", "wsum", "found", "trips_a", "p",
+            "active", "nee", "trips_b", "ps_active", "ps_depth", "ps_d_l",
+            "ps_d_w", "ps_maxt", "ps_last_pdf", "rec_L", "g_sigma",
+            "g_albedo", "counts")]
+        + [("drt_seed", ctypes.c_uint32)])
+
+
+# launcher name -> extra argument types after the params pointer
+_LAUNCHERS = {
+    "primal": {"volpath_primal_launch": [], "volpath_primal_state_launch": [],
+               "tea_launch": None},
+    "adjoint": {"volpath_adjoint_launch": []},
+    "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int]},
+}
+_SIZES = {"primal": ("primal_params_size", PrimalParams),
+          "adjoint": ("adj_params_size", AdjParams),
+          "drt": ("drt_params_size", DrtParams)}
+
+
+def _load(name: str = "primal"):
+    """The ctypes library ``name``; the first call builds all of them."""
+    if name not in _libs:
+        paths = build()
+        for key, path in paths.items():
+            if key in _libs:
+                continue
+            lib = ctypes.CDLL(str(path))
+            for fn, extra in _LAUNCHERS[key].items():
+                f = getattr(lib, fn)
+                if extra is None:     # tea_launch
+                    f.argtypes = [ctypes.c_void_p] * 4 + [
+                        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+                else:
+                    f.argtypes = [ctypes.c_void_p, *extra, ctypes.c_void_p]
+                f.restype = ctypes.c_int
+            size_fn, struct = _SIZES[key]
+            getattr(lib, size_fn).restype = ctypes.c_int
+            if getattr(lib, size_fn)() != ctypes.sizeof(struct):
+                raise RuntimeError(f"{struct.__name__} layout differs between "
+                                   "the CUDA source and its ctypes mirror")
+            if key == "primal":
+                lib.uivr_error_string.argtypes = [ctypes.c_int]
+                lib.uivr_error_string.restype = ctypes.c_char_p
+            _libs[key] = lib
+    return _libs[name]
 
 
 def _check_launch(lib, rc: int, what: str) -> None:
@@ -147,20 +225,38 @@ def _need(t: torch.Tensor, name: str, device, dtype=torch.float32,
     return t.data_ptr()
 
 
-def primal_params(cfg: VolpathConfig, scene: Scene, o: torch.Tensor,
-                  d: torch.Tensor, seed: int, L: torch.Tensor,
-                  escaped: torch.Tensor, dims=None, steps=None) -> PrimalParams:
-    """Fill the kernel's parameter block, checking every tensor it names."""
-    dev = o.device
-    n = o.shape[0]
+def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
+                  escaped=None, dims=None, steps=None, path_state=None,
+                  n: int = None, device=None) -> PrimalParams:
+    """Fill the kernels' common parameter block, checking every tensor it
+    names.  The rays are ``o``, ``d`` (n, 3) or ``path_state``; a block
+    with neither (the delayed DRT term's) gives ``n`` and ``device``."""
+    if path_state is not None:
+        n, device = path_state.o_l.shape[0], path_state.o_l.device
+    elif o is not None:
+        n, device = o.shape[0], o.device
+    dev = device
     m = scene.medium
     p = PrimalParams()
-    p.o = _need(o, "o", dev, shape=(n, 3))
-    p.d = _need(d, "d", dev, shape=(n, 3))
-    p.L = _need(L, "L", dev, shape=(n, 3))
-    p.escaped = _need(escaped, "escaped", dev, torch.bool, (n,))
-    p.dims = None if dims is None else _need(dims, "dims", dev, torch.int32, (n,))
-    p.steps = None if steps is None else _need(steps, "steps", dev, torch.int32, (n,))
+
+    def opt(t, name, dtype=torch.float32, shape=None):
+        return None if t is None else _need(t, name, dev, dtype, shape)
+
+    p.o = opt(o, "o", shape=(n, 3))
+    p.d = opt(d, "d", shape=(n, 3))
+    p.L = opt(L, "L", shape=(n, 3))
+    p.escaped = opt(escaped, "escaped", torch.bool, (n,))
+    p.dims = opt(dims, "dims", torch.int32, (n,))
+    p.steps = opt(steps, "steps", torch.int32, (n,))
+    if path_state is not None:
+        ps = path_state
+        p.ps_active = _need(ps.active, "path_state.active", dev, torch.bool, (n,))
+        p.ps_depth = _need(ps.depth, "path_state.depth", dev, torch.int32, (n,))
+        p.ps_o = _need(ps.o_l, "path_state.o_l", dev, shape=(n, 3))
+        p.ps_d_l = _need(ps.d_l, "path_state.d_l", dev, shape=(n, 3))
+        p.ps_d_w = _need(ps.d_w, "path_state.d_w", dev, shape=(n, 3))
+        p.ps_maxt = _need(ps.maxt, "path_state.maxt", dev, shape=(n,))
+        p.ps_last_pdf = _need(ps.last_pdf, "path_state.last_pdf", dev, shape=(n,))
     if m.grid.ndim != 4 or m.grid.shape[-1] != 4:
         raise ValueError(f"medium grid must be (D, H, W, 4), got {tuple(m.grid.shape)}")
     p.grid = _need(m.grid, "medium grid", dev)
@@ -197,32 +293,197 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o: torch.Tensor,
     return p
 
 
-def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o: torch.Tensor,
-                         d: torch.Tensor, seed, return_stats: bool = False):
-    """Primal estimate of world rays ``o``, ``d`` (n, 3) float32.
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _u32(t: torch.Tensor) -> torch.Tensor:
+    """uint32 counters held in int32 -> int64 values in [0, 2**32)."""
+    return t.to(torch.int64) & _M32
+
+
+def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
+                         return_stats: bool = False,
+                         path_state: PathState = None):
+    """Primal estimate of world rays ``o``, ``d`` (n, 3) float32, or of the
+    paths resumed from ``path_state`` (then ``o``, ``d`` are unused).
 
     Returns ``(L (n,3), escaped (n,))`` and, with ``return_stats``, a dict of
     per-lane ``dim`` (draws consumed) and ``steps``, like the plain twin.
     On ``cpu`` tensors this is the plain twin; on ``cuda`` tensors it
-    launches ``volpath_primal_kernel``."""
-    if not o.is_cuda:
-        return volpath_flat.sample_primal(cfg, scene, o, d, seed, return_stats)
-    n = o.shape[0]
-    L = torch.empty((n, 3), dtype=torch.float32, device=o.device)
-    escaped = torch.empty((n,), dtype=torch.bool, device=o.device)
+    launches ``volpath_primal_kernel`` (``volpath_primal_state_kernel``
+    with a path state)."""
+    ref = o if path_state is None else path_state.o_l
+    if not ref.is_cuda:
+        return volpath_flat.sample_primal(cfg, scene, o, d, seed, return_stats,
+                                          path_state=path_state)
+    n, dev = ref.shape[0], ref.device
+    L = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    escaped = torch.empty((n,), dtype=torch.bool, device=dev)
     dims = steps = None
     if return_stats:
-        dims = torch.empty((n,), dtype=torch.int32, device=o.device)
-        steps = torch.empty((n,), dtype=torch.int32, device=o.device)
-    params = primal_params(cfg, scene, o, d, seed, L, escaped, dims, steps)
-    lib = _load()
-    rc = lib.volpath_primal_launch(ctypes.byref(params),
-                                   torch.cuda.current_stream(o.device).cuda_stream)
-    _check_launch(lib, rc, "volpath_primal")
-    LAUNCHES["volpath_primal"] += 1
+        dims = torch.empty((n,), dtype=torch.int32, device=dev)
+        steps = torch.empty((n,), dtype=torch.int32, device=dev)
+    params = primal_params(cfg, scene, o, d, seed, L, escaped, dims, steps,
+                           path_state=path_state)
+    lib = _load("primal")
+    if path_state is None:
+        rc, key = lib.volpath_primal_launch(ctypes.byref(params), _stream(dev)), "volpath_primal"
+    else:
+        rc, key = (lib.volpath_primal_state_launch(ctypes.byref(params), _stream(dev)),
+                   "volpath_primal_state")
+    _check_launch(lib, rc, key)
+    LAUNCHES[key] += 1
     if return_stats:
-        return L, escaped, {"dim": dims.to(torch.int64) & _M32, "steps": steps}
+        return L, escaped, {"dim": _u32(dims), "steps": steps}
     return L, escaped
+
+
+def _empty_reservoir(n: int, dev) -> _Reservoir:
+    def v3():
+        return torch.empty((n, 3), dtype=torch.float32, device=dev)
+    return _Reservoir(wsum=v3(), cur_w=v3(),
+                      depth=torch.empty((n,), dtype=torch.int32, device=dev),
+                      o_l=v3(), d_l=v3(), d_w=v3(),
+                      maxt=torch.empty((n,), dtype=torch.float32, device=dev),
+                      active=torch.empty((n,), dtype=torch.bool, device=dev))
+
+
+def _grad_pointers(acc: GradAccum, m, dev):
+    shp = tuple(m.params.sigma_t.shape[:3])
+    return (_need(acc.sigma, "sigma gradient", dev, shape=shp + (1,)),
+            _need(acc.albedo, "albedo gradient", dev, shape=shp + (3,)))
+
+
+def adjoint_params(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
+                   acc: GradAccum):
+    """The adjoint kernel's parameter block and the tensors it writes:
+    ``(params, res, stats)``; ``stats`` holds per-lane int32 counters:
+    ``dim`` (primary draws), ``alt_dim`` (alt draws), ``steps`` and
+    ``events`` (n, 2) (real collisions, replay collisions that scatter)."""
+    m = scene.medium
+    n, dev = o.shape[0], o.device
+    res = _empty_reservoir(n, dev)
+    stats = {k: torch.empty((n,), dtype=torch.int32, device=dev)
+             for k in ("dim", "alt_dim", "steps")}
+    stats["events"] = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    a = AdjParams()
+    a.P = primal_params(cfg, scene, o, d, seed, dims=stats["dim"],
+                        steps=stats["steps"])
+    a.L_in = _need(state_in, "state_in", dev, shape=(n, 3))
+    a.dL = _need(dL, "dL", dev, shape=(n, 3))
+    a.g_sigma, a.g_albedo = _grad_pointers(acc, m, dev)
+    a.res_wsum, a.res_cur_w = res.wsum.data_ptr(), res.cur_w.data_ptr()
+    a.res_depth, a.res_o = res.depth.data_ptr(), res.o_l.data_ptr()
+    a.res_d_l, a.res_d_w = res.d_l.data_ptr(), res.d_w.data_ptr()
+    a.res_maxt, a.res_active = res.maxt.data_ptr(), res.active.data_ptr()
+    a.alt_dims = stats["alt_dim"].data_ptr()
+    a.events = stats["events"].data_ptr()
+    a.use_drt, a.use_drt_subsampling = int(cfg.use_drt), int(cfg.use_drt_subsampling)
+    a.use_drt_mis, a.trans_grad_samples = int(cfg.use_drt_mis), int(cfg.trans_grad_samples)
+    return a, res, stats
+
+
+def adjoint_walk_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
+                        state_in):
+    """The adjoint's path-replay walk (``volpath_flat.adjoint_walk``):
+    returns ``(acc, res, stats)``, the kernel's stats with ``events`` too
+    (see :func:`adjoint_params`).  On ``cuda`` tensors it launches
+    ``volpath_adjoint_kernel``, which adds into a zero accumulator with
+    atomics."""
+    if not o.is_cuda:
+        return volpath_flat.adjoint_walk(cfg, scene, o, d, seed, dL, state_in)
+    acc = init_accum(scene.medium, need_emission=False)
+    a, res, stats = adjoint_params(cfg, scene, o, d, seed, dL, state_in, acc)
+    lib = _load("adjoint")
+    _check_launch(_load("primal"),
+                  lib.volpath_adjoint_launch(ctypes.byref(a), _stream(o.device)),
+                  "volpath_adjoint")
+    LAUNCHES["volpath_adjoint"] += 1
+    return acc, res, {k: _u32(v) if k in ("dim", "alt_dim") else v
+                      for k, v in stats.items()}
+
+
+def drt_params(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
+               adjoint: torch.Tensor, acc: GradAccum):
+    """The DRT kernels' parameter block and what they write:
+    ``(params, out, path_state, counts)``; ``params.rec_L`` is set once
+    the recursive primal has run."""
+    m = scene.medium
+    n, dev = res.o_l.shape[0], res.o_l.device
+
+    def f(*shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {"t_sel": f(n), "wsum": f(n), "found": f(n, dtype=torch.bool),
+           "trips_a": f(n, dtype=torch.int32), "p": f(n, 3),
+           "active": f(n, dtype=torch.bool), "nee": f(n, 3),
+           "trips_b": f(n, dtype=torch.int32)}
+    ps = PathState(active=f(n, dtype=torch.bool), depth=f(n, dtype=torch.int32),
+                   o_l=out["p"], d_l=f(n, 3), d_w=f(n, 3), maxt=f(n),
+                   last_pdf=f(n))
+    counts = torch.zeros((2,), dtype=torch.int32, device=dev)
+    D = DrtParams()
+    D.P = primal_params(cfg, scene, None, None, 0, n=n, device=dev)
+    D.res_o = _need(res.o_l, "reservoir o_l", dev, shape=(n, 3))
+    D.res_d_l = _need(res.d_l, "reservoir d_l", dev, shape=(n, 3))
+    D.res_d_w = _need(res.d_w, "reservoir d_w", dev, shape=(n, 3))
+    D.res_maxt = _need(res.maxt, "reservoir maxt", dev, shape=(n,))
+    D.res_depth = _need(res.depth, "reservoir depth", dev, torch.int32, (n,))
+    D.res_active = _need(res.active, "reservoir active", dev, torch.bool, (n,))
+    D.adjoint = _need(adjoint, "adjoint", dev, shape=(n, 3))
+    for k, v in out.items():
+        setattr(D, k, v.data_ptr())
+    D.ps_active, D.ps_depth = ps.active.data_ptr(), ps.depth.data_ptr()
+    D.ps_d_l, D.ps_d_w = ps.d_l.data_ptr(), ps.d_w.data_ptr()
+    D.ps_maxt, D.ps_last_pdf = ps.maxt.data_ptr(), ps.last_pdf.data_ptr()
+    D.g_sigma, D.g_albedo = _grad_pointers(acc, m, dev)
+    D.counts = counts.data_ptr()
+    D.drt_seed = int(sample_tea_32(int(seed), 0x5151)[0])
+    return D, out, ps, counts
+
+
+def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
+                        adjoint: torch.Tensor, acc: GradAccum):
+    """The delayed DRT term (``volpath_flat._drt_backward_flat``), adding
+    into ``acc``.  On ``cuda`` tensors it runs the ``volpath_drt`` kernels
+    (walk, NEE, phase, scatter) around ``volpath_primal_state_kernel``;
+    the wavefront counter's maxima stay on the device."""
+    if not res.o_l.is_cuda:
+        return volpath_flat._drt_backward_flat(cfg, scene, seed, res, adjoint, acc)
+    dev = res.o_l.device
+    D, out, ps, counts = drt_params(cfg, scene, seed, res, adjoint, acc)
+    lib, plib = _load("drt"), _load("primal")
+    mis = int(cfg.use_drt_mis)
+
+    def launch(which, key):
+        _check_launch(plib, lib.volpath_drt_launch(ctypes.byref(D), which, mis,
+                                                   _stream(dev)), key)
+        LAUNCHES[key] += 1
+
+    launch(0, "volpath_drt_walk")
+    if cfg.use_nee:
+        launch(1, "volpath_drt_nee")
+    launch(2, "volpath_drt_phase")
+    rec_seed, _ = sample_tea_32(int(seed), 0x7177)
+    rec_L, _ = sample_primal_kernel(cfg, scene, None, None, rec_seed, path_state=ps)
+    D.rec_L = _need(rec_L, "recursive radiance", dev, shape=(res.o_l.shape[0], 3))
+    launch(3, "volpath_drt_scatter")
+    return acc
+
+
+def sample_adjoint_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
+                          state_in):
+    """Path-replay adjoint with the delayed DRT term
+    (``volpath_flat.sample_adjoint``): MediumParams gradients (zero
+    emission).  On ``cuda`` tensors it runs ``volpath_adjoint_kernel`` and
+    the DRT kernels."""
+    if not o.is_cuda:
+        return volpath_flat.sample_adjoint(cfg, scene, o, d, seed, dL, state_in)
+    acc, res, _ = adjoint_walk_kernel(cfg, scene, o, d, seed, dL, state_in)
+    if cfg.use_drt and cfg.use_drt_subsampling:
+        acc = drt_backward_kernel(cfg, scene, seed, res, _reservoir_get(res) * dL, acc)
+    return finalize_accum(acc, scene.medium)
 
 
 def tea_i32(v0, v1, rounds: int = 6):
@@ -238,7 +499,7 @@ def tea_i32(v0, v1, rounds: int = 6):
     a = v0.to(torch.int32).contiguous()   # wraps: the same 32 bits
     b = v1.to(torch.int32).contiguous()
     o0, o1 = torch.empty_like(a), torch.empty_like(b)
-    lib = _load()
+    lib = _load("primal")
     rc = lib.tea_launch(a.data_ptr(), b.data_ptr(), o0.data_ptr(), o1.data_ptr(),
                         a.numel(), int(rounds),
                         torch.cuda.current_stream(a.device).cuda_stream)

@@ -1,3 +1,4 @@
 from .batched import (  # noqa: F401
-    RenderSettings, render_batch, render_image, sample_batch_pixels,
+    RenderOp, RenderSettings, make_render, render_backward, render_batch,
+    render_image, sample_batch_pixels,
 )

@@ -1,11 +1,14 @@
-"""Ray-centric batched rendering, primal half.
+"""Ray-centric batched differentiable rendering.
 
-Port of the forward path of ``uivr_tpu/render/batched.py``: (sensor, pixel)
-batches, jittered camera rays, the engine dispatch and the full-frame
-``render_image``.  Seeds are TEA-derived per purpose exactly as in the
-reference (pixel sampler ``tea(seed, 5)``, subpixel sampler
-``tea(seed, 22)``), so both packages trace the same rays and paths.  The
-backward pass (custom VJP) belongs to a later slice.
+Port of ``uivr_tpu/render/batched.py``: (sensor, pixel) batches, jittered
+camera rays, the engine dispatch, the full-frame ``render_image`` and the
+differentiable batch render of :func:`make_render`, whose backward (a
+``torch.autograd.Function``) re-samples decorrelated adjoint rays through
+the same pixels, replays their primal detached and runs the path-replay
+adjoint.  Seeds are TEA-derived per purpose exactly as in the reference
+(pixel sampler ``tea(seed, 5)``, primal subpixel sampler ``tea(seed, 22)``,
+adjoint subpixel sampler ``tea(seed_grad, 39)``), so both packages trace
+the same rays and paths.
 """
 from __future__ import annotations
 
@@ -98,6 +101,14 @@ def _dispatch_primal(cfg: VolpathConfig, scene: Scene, o, d, seed):
     return volpath_flat.sample_primal(cfg, scene, o, d, seed)
 
 
+def _dispatch_adjoint(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, L):
+    if not isinstance(cfg, VolpathConfig):
+        raise NotImplementedError(f"{type(cfg).__name__}: not ported yet")
+    if _resolve_engine(cfg, o) == "kernel":
+        return volpath_step.sample_adjoint_kernel(cfg, scene, o, d, seed, dL, L)
+    return volpath_flat.sample_adjoint(cfg, scene, o, d, seed, dL, L)
+
+
 def _scene(st: RenderSettings, params: MediumParams, emitter: Emitter,
            cameras: Cameras, medium_to_world) -> Scene:
     return Scene(medium=finalize_medium(params, st.medium, medium_to_world),
@@ -114,14 +125,11 @@ def _spp_chunk(st: RenderSettings, B: int, spp: int) -> int:
     return c
 
 
-@torch.no_grad()
-def render_batch(settings: RenderSettings, params: MediumParams,
-                 emitter: Emitter, cameras: Cameras, sensor_idx, pixels, seed,
-                 medium_to_world: np.ndarray = None) -> torch.Tensor:
-    """Primal image (B, 3) of a (sensor, pixel) batch at ``settings.spp``,
-    split into spp chunks above ``max_rays_per_pass`` rays."""
-    st = settings
-    scene = _scene(st, params, emitter, cameras, medium_to_world)
+def _primal_image(st: RenderSettings, scene: Scene, cameras: Cameras,
+                  sensor_idx, pixels, seed) -> torch.Tensor:
+    """The primal image (B, 3) at ``st.spp``, split into spp chunks above
+    ``max_rays_per_pass`` rays (seeds 1000+c for the subpixel offsets,
+    7070+c for the paths)."""
     B = sensor_idx.shape[0]
     spp_c = _spp_chunk(st, B, st.spp)
     if spp_c == st.spp:
@@ -140,6 +148,99 @@ def render_batch(settings: RenderSettings, params: MediumParams,
         L, _ = _dispatch_primal(st.integrator, scene, o, d, seed_c)
         acc = acc + L.reshape(B, spp_c, 3).mean(dim=1)
     return acc / n_chunks
+
+
+def _adjoint_pass(st: RenderSettings, scene: Scene, cameras: Cameras,
+                  sensor_idx, pixels, g_img, spp_c: int, sub_seed,
+                  seed_c) -> MediumParams:
+    """One pass of the backward: decorrelated adjoint rays through the same
+    pixels, each carrying 1/spp_grad of its pixel's cotangent (the image is
+    the mean over spp), a detached primal replay and the adjoint on the same
+    stream."""
+    B = sensor_idx.shape[0]
+    o, d = _expand_rays(cameras, sensor_idx, pixels, st.film_size, spp_c,
+                        sub_seed)
+    rep = torch.arange(B * spp_c, device=sensor_idx.device) // spp_c
+    dL = (g_img[rep] / st.spp_grad).contiguous()
+    L, _ = _dispatch_primal(st.integrator, scene, o, d, seed_c)
+    return _dispatch_adjoint(st.integrator, scene, o, d, seed_c, dL, L)
+
+
+def render_backward(st: RenderSettings, scene: Scene, cameras: Cameras,
+                    sensor_idx, pixels, seed_grad, g_img) -> MediumParams:
+    """Gradients of sum(g_img * image) with respect to the grids: the
+    reference's ``render_bwd``; above ``max_rays_per_pass`` adjoint rays the
+    passes run in spp chunks (seeds 2000+c and 9090+c)."""
+    B = sensor_idx.shape[0]
+    spp_g = st.spp_grad
+    spp_c = _spp_chunk(st, B, spp_g)
+    if spp_c == spp_g:
+        sub_seed, _ = sample_tea_32(seed_grad, 39)
+        return _adjoint_pass(st, scene, cameras, sensor_idx, pixels, g_img,
+                             spp_g, sub_seed, seed_grad)
+    grads = None
+    for c in range(spp_g // spp_c):
+        sub_seed, _ = sample_tea_32(sample_tea_32(seed_grad, 39)[0], 2000 + c)
+        seed_c, _ = sample_tea_32(seed_grad, 9090 + c)
+        g = _adjoint_pass(st, scene, cameras, sensor_idx, pixels, g_img, spp_c,
+                          sub_seed, seed_c)
+        grads = g if grads is None else MediumParams(*[a + b for a, b in zip(grads, g)])
+    return grads
+
+
+class RenderOp(torch.autograd.Function):
+    """The batch render as an autograd function of the three grids:
+    forward renders the primal image, backward runs
+    :func:`render_backward` and returns gradients for ``sigma_t`` and
+    ``albedo`` and zeros for ``emission``."""
+
+    @staticmethod
+    def forward(ctx, st, medium_to_world, emitter, cameras, sensor_idx, pixels,
+                seed, seed_grad, sigma_t, albedo, emission):
+        params = MediumParams(sigma_t.detach(), albedo.detach(), emission.detach())
+        scene = _scene(st, params, emitter, cameras, medium_to_world)
+        ctx.st, ctx.scene, ctx.cameras = st, scene, cameras
+        ctx.batch = (sensor_idx, pixels, seed_grad)
+        return _primal_image(st, scene, cameras, sensor_idx, pixels, seed)
+
+    @staticmethod
+    def backward(ctx, g_img):
+        sensor_idx, pixels, seed_grad = ctx.batch
+        with torch.no_grad():
+            g = render_backward(ctx.st, ctx.scene, ctx.cameras, sensor_idx,
+                                pixels, seed_grad, g_img.contiguous())
+        zero_em = torch.zeros_like(ctx.scene.medium.params.emission)
+        return (None,) * 8 + (g.sigma_t, g.albedo, zero_em)
+
+
+def make_render(settings: RenderSettings, medium_to_world: np.ndarray = None):
+    """The differentiable batched render:
+
+        image (B, 3) = render(params, emitter, cameras, sensor_idx (B,),
+                              pixels (B, 2), seed, seed_grad)
+
+    differentiable with respect to the grids of ``params``; emitter and
+    camera gradients are not propagated (as in the reference)."""
+    if medium_to_world is None:
+        medium_to_world = np.eye(4, dtype=np.float32)
+
+    def render(params: MediumParams, emitter: Emitter, cameras: Cameras,
+               sensor_idx, pixels, seed, seed_grad):
+        return RenderOp.apply(settings, medium_to_world, emitter, cameras,
+                              sensor_idx, pixels, seed, seed_grad,
+                              params.sigma_t, params.albedo, params.emission)
+
+    return render
+
+
+@torch.no_grad()
+def render_batch(settings: RenderSettings, params: MediumParams,
+                 emitter: Emitter, cameras: Cameras, sensor_idx, pixels, seed,
+                 medium_to_world: np.ndarray = None) -> torch.Tensor:
+    """Primal image (B, 3) of a (sensor, pixel) batch at ``settings.spp``,
+    split into spp chunks above ``max_rays_per_pass`` rays."""
+    scene = _scene(settings, params, emitter, cameras, medium_to_world)
+    return _primal_image(settings, scene, cameras, sensor_idx, pixels, seed)
 
 
 @torch.no_grad()
