@@ -33,20 +33,26 @@ Phases, one JSON line each; any failure exits nonzero before the last line:
    alt draws and reservoir depth equal on >= 0.90 of lanes (janga) and
    >= 0.95 (cube); gradients' relative L1 sum|a-b| / sum|a| <= 1e-2 on
    sigma and albedo (atomics reorder the sums).
-7. drt: the ``volpath_drt`` kernels and ``volpath_primal_state_kernel``
-   against the twin's delayed DRT term on the janga reservoirs of phase 6:
-   equal wavefront maxima K_A and K_B, per-lane t_sel, wsum and found equal
-   on >= 0.90 of lanes, gradients' relative L1 <= 1e-2.
-8. train: ``opt.run_optimization`` on janga-smoke with
+7. train: ``opt.run_optimization`` on janga-smoke with
    ``volpathsimple-drt`` at full width (batch 32,768, 16 adjoint spp,
    primal factor 64: 33,554,432 primal and 524,288 adjoint rays a step),
    3 iterations, 128^3 grids trained (no upsampling), references at 64
    spp (a cut: the step does not depend on it), counters set to 0 just
-   before.  Per iteration its seconds and loss; the kernels launched, the
-   twins never ran, parameters changed, the .vol checkpoints read back.
-   Then one step part by part (CUDA events) from the constant start and
-   one from the ground-truth grids; the gradients must be finite and
-   nonzero.
+   before: the kernels launched, the twins never ran, parameters changed,
+   the .vol checkpoints read back.  Then ``run_optimization`` for one
+   step from the ground-truth grids.  ``StepRecorder`` keeps what each
+   step did: its seconds, loss and gradients, the inputs and outputs of
+   its adjoint and DRT calls, and CUDA events around the pixel draw, the
+   step and every kernel launch (``volpath_step.TIMINGS``), which give
+   the step's parts.
+8. adjoint_step and drt (``check_step``), for the first step and the
+   ground-truth step: the adjoint call's per-lane primary draws, alt
+   draws and reservoir depth on its last 8,192 rays against the twin
+   keyed by their ray ids (``lane0``), >= 0.90 of lanes, and the step's
+   gradients finite and nonzero; ``drt_backward_kernel`` against
+   ``volpath_flat._drt_backward_flat`` on all 524,288 reservoirs of the
+   step: equal wavefront maxima K_A and K_B, per-lane t_sel, wsum and
+   found equal on >= 0.90 of lanes, gradients' relative L1 <= 1e-2.
 9. cli: ``uivr_tpu_torch.cli.reproduce`` on tiny-cube (20 iterations at
    batch 557); metrics.jsonl must hold losses and the final checkpoint
    must exist.
@@ -63,8 +69,8 @@ tracking event and ``FLOP_PER_EXTRA_DRAW`` per draw beyond the two every
 event takes (one per real collision, four per scatter with NEE).
 ``gather_bound_ms`` counts instead the bytes the events fetch: 132 B of
 grid and majorant per event, 28 B of envmap per scatter, 36 B per ray.
-The training kernels' bounds count the bytes their events fetch as well
-(``adjoint_bound``, ``drt_bounds``), from this run's per-lane counters.
+The training kernels' bounds (``adjoint_bound``, ``drt_bounds``) follow
+the same two rules, from this run's per-lane counters.
 """
 import dataclasses
 import json
@@ -178,6 +184,7 @@ DRT_KERNELS = ("volpath_drt_walk", "volpath_drt_nee", "volpath_drt_phase",
                "volpath_drt_scatter")
 ADJ_KERNELS = ("volpath_adjoint", "volpath_primal_state") + DRT_KERNELS
 TRAIN_KERNELS = ("volpath_primal",) + ADJ_KERNELS
+SLICE = 8192    # lanes of a training step's adjoint call held against the twin
 
 
 def rel_l1(a, ref):
@@ -188,166 +195,148 @@ def equal_frac(a, b):
     return float((a == b).float().mean())
 
 
-class Timer:
-    """CUDA-event times (ms) of consecutive parts, one sync per part."""
+class StepRecorder:
+    """Records what the steps of ``opt.run_optimization`` do, around the
+    package's own functions, each of which still runs as it is: CUDA events
+    of the pixel draw, of the whole step and of every kernel launch
+    (``volpath_step.TIMINGS``); the adjoint walk's inputs and outputs; the
+    delayed DRT term's inputs; the gradients the backward returns."""
 
-    def __init__(self):
+    def __init__(self, vs, loop):
+        self.vs, self.loop = vs, loop
+        self.steps, self.pre, self.saved = [], [], {}
+
+    def __enter__(self):
         import torch
-        self.torch = torch
-        self.parts = {}
-        self.ev = self.torch.cuda.Event(enable_timing=True)
-        self.ev.record()
+        vs = self.vs
 
-    def __call__(self, name):
-        end = self.torch.cuda.Event(enable_timing=True)
-        end.record()
-        self.torch.cuda.synchronize()
-        self.parts[name] = self.parts.get(name, 0.0) + self.ev.elapsed_time(end)
-        self.ev = end
+        def event():
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            return e
 
+        def timed(fn):
+            def run(*a, **k):
+                s = event()
+                out = fn(*a, **k)
+                self.pre.append((fn.__name__, s, event()))
+                return out
+            return run
 
-def drt_launch(vs, D, which, mis):
-    """One volpath_drt launch outside the wrapper (timing and comparison
-    only: it does not count in LAUNCHES)."""
-    import ctypes
-    import torch
-    rc = vs._load("drt").volpath_drt_launch(ctypes.byref(D), which, mis,
-                                            torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise RuntimeError(f"volpath_drt launch {which} failed ({rc})")
+        def make_step(make):
+            def build(*a, **k):
+                step = make(*a, **k)
 
+                def run(*args):
+                    rec = {"pre": self.pre, "launches": []}
+                    self.pre = []
+                    self.steps.append(rec)
+                    torch.cuda.synchronize()
+                    vs.TIMINGS = rec["launches"]
+                    t0 = time.perf_counter()
+                    rec["start"] = event()
+                    out = step(*args)
+                    rec["end"] = event()
+                    torch.cuda.synchronize()
+                    rec["seconds"] = time.perf_counter() - t0
+                    vs.TIMINGS = None
+                    rec["loss"] = float(out[2])
+                    return out
+                return run
+            return build
 
-def kernel_drt(vs, cfg, sc, seed, res, adjoint, timer=None):
-    """The delayed DRT term launch by launch, as drt_backward_kernel runs
-    it, with an optional Timer after each kernel.  Returns its outputs."""
-    from uivr_tpu_torch.core.rng import sample_tea_32
-    from uivr_tpu_torch.scene.gradients import init_accum
-    acc = init_accum(sc.medium, need_emission=False)
-    D, out, ps, counts = vs.drt_params(cfg, sc, seed, res, adjoint, acc)
-    mis = int(cfg.use_drt_mis)
-    drt_launch(vs, D, 0, mis)
-    if timer:
-        timer("drt_walk")
-    if cfg.use_nee:
-        drt_launch(vs, D, 1, mis)
-        if timer:
-            timer("drt_nee")
-    drt_launch(vs, D, 2, mis)
-    if timer:
-        timer("drt_phase")
-    rec_L, _, rec_stats = vs.sample_primal_kernel(cfg, sc, None, None,
-                                                  sample_tea_32(seed, 0x7177)[0],
-                                                  return_stats=True, path_state=ps)
-    if timer:
-        timer("drt_recursive_primal")
-    D.rec_L = rec_L.data_ptr()
-    drt_launch(vs, D, 3, mis)
-    if timer:
-        timer("drt_scatter")
-    return dict(acc=acc, out=out, ps=ps, counts=counts, rec_L=rec_L, rec_stats=rec_stats)
+        def adjoint_walk(fn):
+            def run(cfg, scene, o, d, seed, dL, state_in):
+                out = fn(cfg, scene, o, d, seed, dL, state_in)
+                self.steps[-1]["adjoint"] = dict(cfg=cfg, scene=scene, o=o, d=d, seed=seed,
+                                                 dL=dL, L=state_in, res=out[1], stats=out[2])
+                return out
+            return run
 
+        def drt(fn):
+            def run(cfg, scene, seed, res, adjoint, acc):
+                self.steps[-1]["drt"] = dict(seed=seed, res=res, adjoint=adjoint)
+                return fn(cfg, scene, seed, res, adjoint, acc)
+            return run
 
-def plain_drt(cfg, sc, seed, res, adjoint):
-    """The twin's delayed DRT term (volpath_flat._drt_backward_flat), part
-    by part, with host-clock times."""
-    import torch
-    from uivr_tpu_torch.core import aabb
-    from uivr_tpu_torch.core.fmath import ray_point
-    from uivr_tpu_torch.core.rng import make_sampler, next_1d, next_2d, sample_tea_32
-    from uivr_tpu_torch.integrators import volpath_flat
-    from uivr_tpu_torch.integrators.volpathsimple import PathState, _exit_dist, _nee_primal
-    from uivr_tpu_torch.scene.gradients import init_accum, scatter_sigma_albedo
-    from uivr_tpu_torch.scene.medium import sigma_albedo_at
-    from uivr_tpu_torch.scene.phase import phase_sample
-    from uivr_tpu_torch.tracking import drt_distance
-    m = sc.medium
-    ms = {}
+        def grads(fn):
+            def run(*a):
+                g = fn(*a)
+                self.steps[-1]["grads"] = g
+                return g
+            return run
 
-    def lap(name, t0):
-        torch.cuda.synchronize()
-        ms[name] = (time.perf_counter() - t0) * 1e3
-        return time.perf_counter()
+        for mod, name, wrap in ((self.loop, "_make_step", make_step),
+                                (self.loop, "sample_batch_pixels", timed),
+                                (self.loop, "gather_ref_values", timed),
+                                (vs, "adjoint_walk_kernel", adjoint_walk),
+                                (vs, "drt_backward_kernel", drt),
+                                (vs, "sample_adjoint_kernel", grads)):
+            self.saved[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, wrap(getattr(mod, name)))
+        return self
 
-    t0 = time.perf_counter()
-    gs = make_sampler(sample_tea_32(seed, 0x5151)[0], n_lanes=res.o_l.shape[0],
-                      device=res.o_l.device)
-    t_sel, wsum, found, gs = drt_distance(m, res.o_l, res.d_l, res.maxt, gs, res.active,
-                                          max_steps=cfg.max_steps)
-    k_a = gs.dim // 2
-    active = res.active & found
-    p = ray_point(res.o_l, torch.where(found, t_sel, 0.0), res.d_l)
-    t0 = lap("volpath_drt_walk", t0)
-    nee = torch.zeros_like(adjoint)
-    dim_b = gs.dim
-    if cfg.use_nee:
-        nee, _, gs = _nee_primal(cfg, sc, p, res.d_w, torch.ones_like(adjoint), gs, active)
-        t0 = lap("volpath_drt_nee", t0)
-    k_b = gs.dim - dim_b - 2 if cfg.use_nee else 0
-    u1, gs = next_1d(gs)
-    u2, gs = next_2d(gs)
-    wo, ph_pdf = phase_sample(m.phase_g, res.d_w, u1, u2[:, 1])
-    rec_dl = aabb.transform_dirs(m.world_to_local, wo)
-    rec_maxt = _exit_dist(p, rec_dl)
-    depth = torch.where(active, res.depth + 1, res.depth)
-    ps = PathState(active=active & (depth < cfg.max_depth) & (rec_maxt > 1e-7),
-                   depth=depth, o_l=p, d_l=rec_dl, d_w=wo, maxt=rec_maxt,
-                   last_pdf=torch.where(active, ph_pdf, 1.0))
-    t0 = lap("volpath_drt_phase", t0)
-    rec_L, _ = volpath_flat.sample_primal(cfg, sc, None, None, sample_tea_32(seed, 0x7177)[0],
-                                          path_state=ps)
-    t0 = lap("volpath_primal_state", t0)
-    sig, alb = sigma_albedo_at(m, p)
-    w_mis = 1.0 / (1.0 + sig * sig) if cfg.use_drt_mis else torch.ones_like(sig)
-    factor = (w_mis * wsum)[:, None] * adjoint * (nee + rec_L if cfg.use_nee else rec_L)
-    fa = factor * alb
-    scatter_sigma_albedo(init_accum(m, need_emission=False), m, p,
-                         (fa[:, 0] + fa[:, 1]) + fa[:, 2], factor * sig[:, None], active)
-    lap("volpath_drt_scatter", t0)
-    return dict(t_sel=t_sel, wsum=wsum, found=found, k_a=k_a, k_b=k_b, nee=nee, ps=ps,
-                rec_L=rec_L, ms=ms)
+    def __exit__(self, *exc):
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
+        self.vs.TIMINGS = None
 
 
-def adjoint_bound(n, stats, cfg):
-    """Least time of volpath_adjoint at this run's counts: the bytes its
-    events fetch (132 B per event, 128 B of atomics per real collision, 32 B
-    per transmittance sample and per replay collision) plus the compulsory
-    per-ray I/O (o, d, L, dL in; reservoir out: 120 B), against the flops
-    of its events."""
-    events = int(stats["steps"].sum())
-    real = int(stats["events"][:, 0].sum())
-    replay = int(stats["events"][:, 1].sum())
-    per_seg = cfg.trans_grad_samples + int(cfg.use_drt and cfg.use_drt_subsampling)
-    samples = int(stats["alt_dim"].sum()) // per_seg * cfg.trans_grad_samples
-    extra_draws = int(stats["dim"].sum()) + int(stats["alt_dim"].sum()) - 2 * events
-    n_bytes = 132 * events + 128 * real + 32 * (samples + replay) + 120 * n
-    return bound(n_bytes, FLOP_PER_STEP * events + FLOP_PER_EXTRA_DRAW * extra_draws), {
-        "events": events, "real_collisions": real, "replay_collisions": replay,
-        "trans_samples": samples}
+def step_parts(rec):
+    """A recorded step's parts (ms): consecutive spans of the device's
+    timeline between its CUDA events, which add up to the step, and each
+    backward kernel's own launch."""
+    def ms(a, b):
+        return a.elapsed_time(b)
+    L = rec["launches"]
+    i_adj = next(i for i, x in enumerate(L) if x[0] == "volpath_adjoint")
+    prim = [x for x in L[:i_adj] if x[0] == "volpath_primal"]
+    fwd, replay = prim[:-1], prim[-1]
+    one = {x[0]: x for x in L[i_adj:] if x[0] in ADJ_KERNELS}
+    last = max(one.values(), key=L.index)
+    k_fwd = sum(ms(s, e) for _, s, e in fwd)
+    kern = {k: ms(s, e) for k, (_, s, e) in one.items()}
+    return {"pixels": sum(ms(s, e) for _, s, e in rec["pre"]),
+            "forward_kernels": k_fwd, "forward_launches": len(fwd),
+            "forward_rays_mean": ms(rec["start"], fwd[-1][2]) - k_fwd,
+            "loss_adjoint_rays": ms(fwd[-1][2], replay[1]),
+            "replay": ms(replay[1], replay[2]), **kern,
+            "backward_other": ms(replay[2], last[2]) - sum(kern.values()),
+            "grads_adam_projection": ms(last[2], rec["end"]),
+            "step": ms(rec["start"], rec["end"])}
 
 
-def drt_bounds(n, kd, cfg):
-    """Least times of the four DRT kernels at this run's counts (bytes the
-    walks fetch, 132 B per step; 128 B of reads and 128 B of atomics per
-    scattered vertex; per-lane I/O) against their hash operations
-    (4 + 8 TEA rounds per wavefront draw)."""
-    hash_ops = TEA_OPS_PER_ROUND * 12
-    trips_a = int(kd["out"]["trips_a"].sum())
-    trips_b = int(kd["out"]["trips_b"].sum())
-    active = int(kd["out"]["active"].sum())
-    return {
-        "volpath_drt_walk": bound(132 * trips_a + n * (44 + 26),
-                                  trips_a * (2 * hash_ops + FLOP_PER_STEP)),
-        "volpath_drt_nee": bound(132 * trips_b + 28 * active + n * (25 + 16),
-                                 trips_b * (hash_ops + FLOP_PER_STEP) + 2 * hash_ops * active),
-        "volpath_drt_phase": bound(n * (12 + 8 + 1 + 48 + 9), n * (2 * hash_ops + 100)),
-        "volpath_drt_scatter": bound(n * 1 + active * (12 + 4 + 36 + 128 + 128),
-                                     active * 150),
-    }, {"walk_steps": trips_a, "nee_steps": trips_b, "vertices": active}
+class Laps:
+    """Host-clock stamps (with a device sync on either side) of calls of
+    ``module.<name>``, for the plain twin's parts."""
+
+    def __init__(self, module, names):
+        self.module, self.names, self.stamps, self.saved = module, names, {}, {}
+
+    def __enter__(self):
+        import torch
+
+        def wrap(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.stamps[name] = (t0, time.perf_counter())
+                return out
+            return run
+        for name in self.names:
+            self.saved[name] = getattr(self.module, name)
+            setattr(self.module, name, wrap(name, self.saved[name]))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.module, name, fn)
 
 
 def phase_adjoint(card, dev, vs, janga, cube, rays_of):
     """Kernel vs twin on the adjoint walk (after one replay primal each)."""
-    import dataclasses
     import torch
     from uivr_tpu_torch.config import get_int_config
     from uivr_tpu_torch.integrators import volpath_flat
@@ -356,7 +345,6 @@ def phase_adjoint(card, dev, vs, janga, cube, rays_of):
             ("janga-smoke", janga, "volpathsimple-basic", {"shadow_rr": 0.05}, 8192, 0.90),
             ("tiny-cube", cube, "volpathsimple-drt", {}, 16384, 0.95),
             ("tiny-cube", cube, "volpathsimple-drt", {"use_nee": False}, 16384, 0.95)]
-    keep = None
     for name, (preset, b, sc), integ, kw, n, need in runs:
         cfg = dataclasses.replace(get_int_config(integ).create(max_depth=preset.max_depth), **kw)
         o, d = rays_of(b, n)
@@ -386,114 +374,104 @@ def phase_adjoint(card, dev, vs, janga, cube, rays_of):
         emit(rec)
         if min(agree.values()) < need or max(rel.values()) > 1e-2 or not rec["grad_abs_sum"] > 0:
             raise RuntimeError(f"adjoint {name} {integ} {kw}: kernel disagrees with the twin")
-        if keep is None:    # the janga DRT run feeds the drt phase
-            keep = dict(cfg=cfg, sc=sc, res=res_t, dL=dL, seed=seed, rec=rec)
-    return keep
 
 
-def phase_drt(card, vs, keep):
-    """The volpath_drt kernels + volpath_primal_state vs the twin's
-    delayed DRT term on the janga reservoirs of the adjoint phase."""
+def check_step(card, vs, tag, step):
+    """A recorded training step's kernels against the twins, at the shapes
+    the step gave them: the adjoint call's per-lane primary draws, alt
+    draws and reservoir depth on its last SLICE rays (the twin keyed by
+    their ray ids), and ``drt_backward_kernel`` against
+    ``_drt_backward_flat`` on all of the step's reservoirs."""
     import torch
     from uivr_tpu_torch.integrators import volpath_flat
-    from uivr_tpu_torch.integrators.volpathsimple import _reservoir_get
     from uivr_tpu_torch.scene.gradients import init_accum
-    cfg, sc, res, dL, seed = (keep[k] for k in ("cfg", "sc", "res", "dL", "seed"))
-    adjoint = _reservoir_get(res) * dL
-    timer = Timer()
-    kd = kernel_drt(vs, cfg, sc, seed, res, adjoint, timer)
-    plain = plain_drt(cfg, sc, seed, res, adjoint)
-    acc_t = init_accum(sc.medium, need_emission=False)
+    a, dr = step["adjoint"], step["drt"]
+    cfg, sc = a["cfg"], a["scene"]
+    n = a["o"].shape[0]
+    sl = slice(n - SLICE, n)
     t0 = time.perf_counter()
-    volpath_flat._drt_backward_flat(cfg, sc, seed, res, adjoint, acc_t)
+    Lt, _ = volpath_flat.sample_primal(cfg, sc, a["o"][sl], a["d"][sl], a["seed"],
+                                       lane0=n - SLICE)
     torch.cuda.synchronize()
-    plain_total = (time.perf_counter() - t0) * 1e3
-    out = kd["out"]
-    counts = [int(c) for c in kd["counts"]]
-    agree = {k: equal_frac(out[k], plain[k]) for k in ("t_sel", "wsum", "found")}
-    both = out["active"] & plain["ps"].active
-    rel = {"sigma": rel_l1(kd["acc"].sigma, acc_t.sigma),
-           "albedo": rel_l1(kd["acc"].albedo, acc_t.albedo)}
-    rec = {"phase": "drt", "scene": "janga-smoke", "vertices": int(res.active.sum()),
-           "K_A": counts[0], "K_B": counts[1], "K_A_plain": plain["k_a"],
-           "K_B_plain": plain["k_b"], "agreement": agree, "need": 0.90, "rel_l1": rel,
-           "path_state_agreement": equal_frac(kd["ps"].active, plain["ps"].active),
-           "recursive_L_agreement": lane_agreement(kd["rec_L"][both], plain["rec_L"][both]),
-           "max_abs_err": {
-               "volpath_drt_walk": float((out["wsum"] - plain["wsum"]).abs().max()),
-               "volpath_drt_nee": float((out["nee"][both] - plain["nee"][both]).abs().max()),
-               "volpath_drt_phase": float((kd["ps"].d_w[both] - plain["ps"].d_w[both]).abs().max()),
-               "volpath_primal_state": float((kd["rec_L"][both] - plain["rec_L"][both]).abs().max()),
-               "volpath_drt_scatter": float((kd["acc"].sigma - acc_t.sigma).abs().max())},
-           "kernel_ms": timer.parts, "plain_ms": dict(plain["ms"], total=plain_total),
+    t1 = time.perf_counter()
+    _, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, a["o"][sl], a["d"][sl], a["seed"],
+                                               a["dL"][sl], a["L"][sl], lane0=n - SLICE)
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.perf_counter() - t1) * 1e3
+    adj_agree = {"replay_L": lane_agreement(a["L"][sl], Lt),
+                 "dim": equal_frac(a["stats"]["dim"][sl], st_t["dim"]),
+                 "alt_dim": equal_frac(a["stats"]["alt_dim"][sl], st_t["alt_dim"]),
+                 "reservoir_depth": equal_frac(a["res"].depth[sl], res_t.depth)}
+    adj_err = max(float((a["res"].wsum[sl] - res_t.wsum).abs().max()),
+                  float((a["res"].cur_w[sl] - res_t.cur_w).abs().max()))
+
+    m = sc.medium
+    acc_k, k = vs.drt_backward_kernel(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
+                                      init_accum(m, need_emission=False), return_stats=True)
+    acc_t = init_accum(m, need_emission=False)
+    with Laps(volpath_flat, ("drt_distance", "_nee_primal", "sample_primal")) as laps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, p = volpath_flat._drt_backward_flat(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
+                                               acc_t, return_stats=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    st = laps.stamps
+    walk_end = st["drt_distance"][1]
+    nee_end = st["_nee_primal"][1] if cfg.use_nee else walk_end
+    drt_plain_ms = {"volpath_drt_walk": (walk_end - t0) * 1e3,
+                    "volpath_drt_nee": (nee_end - walk_end) * 1e3,
+                    "volpath_drt_phase": (st["sample_primal"][0] - nee_end) * 1e3,
+                    "volpath_primal_state": (st["sample_primal"][1] - st["sample_primal"][0]) * 1e3,
+                    "volpath_drt_scatter": (t1 - st["sample_primal"][1]) * 1e3}
+    both = k["path_state"].active & p["path_state"].active
+    agree = {f: equal_frac(k[f], p[f]) for f in ("t_sel", "wsum", "found")}
+    agree["path_state_active"] = equal_frac(k["path_state"].active, p["path_state"].active)
+    agree["recursive_L"] = lane_agreement(k["rec_L"][both], p["rec_L"][both])
+    rel = {"sigma": rel_l1(acc_k.sigma, acc_t.sigma), "albedo": rel_l1(acc_k.albedo, acc_t.albedo)}
+    g = step["grads"]
+    adj_rec = {"phase": "adjoint_step", "step": tag, "adjoint_rays": n,
+               "adjoint_slice": [n - SLICE, n], "adjoint_agreement": adj_agree,
+               "need": 0.90, "adjoint_max_abs_err": adj_err, "adjoint_plain_ms": adj_plain_ms,
+               "grads_finite": bool(torch.isfinite(g.sigma_t).all()
+                                    and torch.isfinite(g.albedo).all()),
+               "grads_abs_sum": [float(g.sigma_t.abs().sum()), float(g.albedo.abs().sum())],
+               "card": card}
+    rec = {"phase": "drt", "step": tag, "reservoirs": n,
+           "vertices": int((dr["res"].active & k["found"]).sum()),
+           "K_A": k["k_a"], "K_B": k["k_b"], "K_A_plain": int(p["k_a"]), "K_B_plain": int(p["k_b"]),
+           "drt_agreement": agree, "need": 0.90, "drt_rel_l1": rel,
+           "drt_max_abs_err": {
+               "volpath_drt_walk": float((k["wsum"] - p["wsum"]).abs().max()),
+               "volpath_drt_nee": float((k["nee"][both] - p["nee"][both]).abs().max()),
+               "volpath_drt_phase": float((k["path_state"].d_w[both]
+                                           - p["path_state"].d_w[both]).abs().max()),
+               "volpath_primal_state": float((k["rec_L"][both] - p["rec_L"][both]).abs().max()),
+               "volpath_drt_scatter": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
+                                          float((acc_k.albedo - acc_t.albedo).abs().max()))},
+           "drt_plain_ms": drt_plain_ms, "drt_plain_total_ms": (t1 - t0) * 1e3,
            "card": card}
+    emit(adj_rec)
     emit(rec)
-    if counts != [plain["k_a"], plain["k_b"]] or min(agree.values()) < 0.90 \
-            or max(rel.values()) > 1e-2:
-        raise RuntimeError("drt: the kernels disagree with the twin")
-    return rec
-
-
-def timed_step(vs, st, b, params, opt_state, ref_images, it, base_seed=988378, batch=32768):
-    """One training step part by part (CUDA events), as
-    opt.loop._make_step runs it; returns the parts, the gradients and the
-    kernels' inputs for the kernels line."""
-    import torch
-    from uivr_tpu_torch.core.rng import sample_tea_32
-    from uivr_tpu_torch.integrators.volpathsimple import _reservoir_get
-    from uivr_tpu_torch.opt import adam_step, enforce_valid_params, learning_rates, losses
-    from uivr_tpu_torch.opt.loop import gather_ref_values
-    from uivr_tpu_torch.render import batched
-    from uivr_tpu_torch.scene.gradients import finalize_accum
-    from uivr_tpu_torch.scene.medium import MediumParams
-    cfg = st.integrator
-    timer = Timer()
-    seed, _ = sample_tea_32(2 * it, base_seed)
-    seed_grad, _ = sample_tea_32(2 * it + 1, base_seed)
-    sidx, pix = batched.sample_batch_pixels(seed, b.cameras.n_sensors, b.film_size, batch,
-                                            sensors=b.sensors, device=ref_images.device)
-    ref = gather_ref_values(ref_images, sidx, pix)
-    scene = batched._scene(st, params, b.emitter, b.cameras, b.to_world)
-    timer("pixels_scene")
-    img = batched._primal_image(st, scene, b.cameras, sidx, pix, seed)
-    timer("forward")
-    img.requires_grad_(True)
-    loss = losses.l1(img, ref)
-    g_img, = torch.autograd.grad(loss, img)
-    timer("loss")
-    sub_seed, _ = sample_tea_32(seed_grad, 39)
-    o, d = batched._expand_rays(b.cameras, sidx, pix, st.film_size, st.spp_grad, sub_seed)
-    rep = torch.arange(batch * st.spp_grad, device=o.device) // st.spp_grad
-    dL = (g_img[rep] / st.spp_grad).contiguous()
-    timer("adjoint_rays")
-    L, _ = vs.sample_primal_kernel(cfg, scene, o, d, seed_grad)
-    timer("replay")
-    acc, res, stats = vs.adjoint_walk_kernel(cfg, scene, o, d, seed_grad, dL, L)
-    timer("adjoint")
-    adjoint = _reservoir_get(res) * dL
-    kd = kernel_drt(vs, cfg, scene, seed_grad, res, adjoint, timer)
-    grads = finalize_accum(acc, scene.medium)
-    grads = MediumParams(grads.sigma_t + kd["acc"].sigma, grads.albedo + kd["acc"].albedo,
-                         grads.emission)
-    timer("grads_sum")
-    lr = learning_rates(5e-3, 0, it, 6000, {"albedo": 2.0})
-    new_p, _ = adam_step(params, grads, opt_state, lr)
-    new_p = enforce_valid_params(new_p, b.max_density)
-    timer("adam_projection")
-    return dict(parts=timer.parts, loss=float(loss.detach()), grads=grads, new_params=new_p,
-                adj_in=(cfg, scene, o, d, seed_grad, dL, L), adj_stats=stats,
-                drt_in=(cfg, scene, seed_grad, res, adjoint), kd=kd)
+    if min(adj_agree.values()) < 0.90:
+        raise RuntimeError(f"adjoint_step {tag}: volpath_adjoint disagrees with the twin")
+    if not (adj_rec["grads_finite"] and min(adj_rec["grads_abs_sum"]) > 0):
+        raise RuntimeError(f"adjoint_step {tag}: the step's gradients are not finite and nonzero")
+    if min(agree.values()) < 0.90 or [k["k_a"], k["k_b"]] != [int(p["k_a"]), int(p["k_b"])] \
+            or max(rel.values()) > 1e-2 or not float(acc_t.sigma.abs().sum()) > 0:
+        raise RuntimeError(f"drt {tag}: the DRT kernels disagree with the twin")
+    return dict(adj_rec, **rec, drt_stats=k)
 
 
 def phase_train(card, dev, vs, janga, out_dir):
     """run_optimization at full width (3 iterations of volpathsimple-drt on
-    janga-smoke, 128^3 grids trained), then one step timed part by part
-    from the constant start and one from the ground-truth grids."""
+    janga-smoke, 128^3 grids trained), then one step of it from the
+    ground-truth grids; both recorded by StepRecorder."""
     import torch
     from uivr_tpu_torch.config import get_int_config
     from uivr_tpu_torch.core import vol_io
     from uivr_tpu_torch.integrators import volpath_flat
-    from uivr_tpu_torch.opt import OptimizationConfig, adam_init, loop, render_references
+    from uivr_tpu_torch.opt import OptimizationConfig, loop, render_references
     from uivr_tpu_torch.render import RenderSettings
     preset, b, _ = janga
     cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
@@ -504,40 +482,31 @@ def phase_train(card, dev, vs, janga, out_dir):
                                                spp_grad=ref_spp),
                              str(out_dir / "references"), spp=ref_spp, overwrite=True)
     ref_s = time.perf_counter() - t0
-    opt = OptimizationConfig(name="janga-smoke/volpathsimple-drt", spp=16, n_iter=3,
-                             lr=5e-3, primal_spp_factor=64, batch_size=32768,
-                             upsample=None, preview_stride=0, checkpoint_stride=2,
-                             render_initial=False, preview_spp=16)
-    steps = []
-    make_step = loop._make_step
-
-    def timed_make_step(*a, **k):
-        step = make_step(*a, **k)
-
-        def run(*args):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = step(*args)
-            torch.cuda.synchronize()
-            steps.append({"seconds": time.perf_counter() - t, "loss": float(out[2])})
-            return out
-        return run
-
+    width = dict(spp=16, lr=5e-3, primal_spp_factor=64, batch_size=32768, upsample=None,
+                 preview_spp=16)
+    opt = OptimizationConfig(name="janga-smoke/volpathsimple-drt", n_iter=3,
+                             preview_stride=0, checkpoint_stride=2, render_initial=False,
+                             **width)
     for k in vs.LAUNCHES:
         vs.LAUNCHES[k] = 0
     for k in volpath_flat.CALLS:
         volpath_flat.CALLS[k] = 0
-    loop._make_step = timed_make_step
-    try:
+    with StepRecorder(vs, loop) as main:
         t0 = time.perf_counter()
         final = loop.run_optimization(str(out_dir / "train"), opt, b, cfg, ref_images=refs,
                                       resume=False, verbose=False)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
-    finally:
-        loop._make_step = make_step
     launches = dict(vs.LAUNCHES)
     plain_calls = dict(volpath_flat.CALLS)
+    # one step from the ground-truth grids: walks as long as late in a run
+    one = OptimizationConfig(name="janga-smoke/truth", n_iter=1, preview_stride=0,
+                             checkpoint_stride=0, checkpoint_initial=False,
+                             checkpoint_final=False, render_initial=False,
+                             render_final=False, **width)
+    with StepRecorder(vs, loop) as truth:
+        loop.run_optimization(str(out_dir / "truth"), one, b, cfg, ref_images=refs,
+                              start_params=b.params, resume=False, verbose=False)
     vols = {}
     for tag, grids in (("initial", b.start_from), ("final", final)):
         for key in ("sigma_t", "albedo"):
@@ -545,34 +514,23 @@ def phase_train(card, dev, vs, janga, out_dir):
             vols[f"{tag}_{key}"] = bool(np.array_equal(data, getattr(grids, key).cpu().numpy()))
     changed = {k: not torch.equal(getattr(final, k), getattr(b.start_from, k))
                for k in ("sigma_t", "albedo")}
-
-    # one step part by part, from the constant start and from the truth
-    st = RenderSettings(integrator=cfg, medium=b.medium_cfg, film_size=b.film_size,
-                        spp=16 * 64, spp_grad=16)
-    ref_dev = torch.as_tensor(refs, device=dev)
-    start = timed_step(vs, st, b, b.start_from, adam_init(b.start_from), ref_dev, 0)
-    truth = timed_step(vs, st, b, b.params, adam_init(b.params), ref_dev, 0)
-    g = start["grads"]
-    grads_ok = all(bool(torch.isfinite(x).all()) and float(x.abs().sum()) > 0
-                   for x in (g.sigma_t, g.albedo))
+    steps = [{"seconds": s["seconds"], "loss": s["loss"], "parts_ms": step_parts(s)}
+             for s in main.steps + truth.steps]
     rec = {"phase": "train", "scene": "janga-smoke", "integrator": "volpathsimple-drt",
            "batch": 32768, "spp_primal": 1024, "spp_grad": 16, "grid": list(b.params.sigma_t.shape),
-           "ref_spp": ref_spp, "references_s": ref_s, "run_s": run_s, "iterations": steps,
+           "ref_spp": ref_spp, "references_s": ref_s, "run_s": run_s,
+           "iterations": steps[:-1], "truth_step": steps[-1],
            "launches": launches, "plain_twin_calls": plain_calls,
-           "checkpoints_read_back": vols, "params_changed": changed,
-           "grads_finite_nonzero": grads_ok,
-           "step_parts_ms_start": start["parts"], "step_loss_start": start["loss"],
-           "step_parts_ms_truth": truth["parts"], "step_loss_truth": truth["loss"],
-           "card": card}
+           "checkpoints_read_back": vols, "params_changed": changed, "card": card}
     emit(rec)
     missing = [k for k in TRAIN_KERNELS if not launches[k] > 0]
     if missing or any(plain_calls.values()):
         raise RuntimeError(f"training did not run through the kernels: missing {missing}, "
                            f"plain twin calls {plain_calls}")
-    if not (grads_ok and all(changed.values()) and all(vols.values()) and len(steps) == 3
+    if not (all(changed.values()) and all(vols.values()) and len(main.steps) == 3
             and all(math.isfinite(s_["loss"]) for s_ in steps)):
         raise RuntimeError("training step checks failed")
-    return rec, start, truth
+    return rec, main.steps[0], truth.steps[0]
 
 
 def phase_cli(card, out_dir):
@@ -600,75 +558,129 @@ def phase_cli(card, out_dir):
         raise RuntimeError("cli: no losses or no final checkpoint")
 
 
-def training_kernels(vs, card, train, step, adj, drt):
-    """Kernel-line entries of the training path's kernels, at the shapes a
-    full-width janga-smoke step gives them (``step``: the timed step from
-    the ground-truth grids, whose walks are as long as late in a run)."""
-    import ctypes
-    import torch
-    from uivr_tpu_torch.scene.gradients import init_accum
-    per_step = {k: train["launches"][k] / len(train["iterations"]) for k in TRAIN_KERNELS}
-    cfg, scene, o, d, seed, dL, L = step["adj_in"]
-    n = o.shape[0]
-    acc = init_accum(scene.medium, need_emission=False)
-    a, res, stats = vs.adjoint_params(cfg, scene, o, d, seed, dL, L, acc)   # kept alive
-    lib = vs._load("adjoint")
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def adj_launch():
-        if lib.volpath_adjoint_launch(ctypes.byref(a), stream):
-            raise RuntimeError("volpath_adjoint launch failed")
-    adj_launch()
-    a_ms = cuda_ms(adj_launch, 3)
-    del res, stats
-    (a_bound, a_by), a_counts = adjoint_bound(n, step["adj_stats"], cfg)
-    kd = step["kd"]
-    ps = kd["ps"]
-    rec_seed = 0x7177
-    s_ms = cuda_ms(lambda: vs.sample_primal_kernel(cfg, scene, None, None, rec_seed,
-                                                   path_state=ps), 3)
-    steps = int(kd["rec_stats"]["steps"].sum())
-    extra = int(kd["rec_stats"]["dim"].sum()) - 2 * steps
+def table_bytes(scene):
+    """Bytes of the tables every walking kernel reads: the (D,H,W,4)
+    sigma+albedo grid, the majorant supergrid and the envmap's tables."""
     m, em = scene.medium, scene.emitter
-    tables = (m.grid.numel() + m.majorant_grid.numel()
-              + sum(t.numel() for t in (em.data, em.alias_tab, em.row_pmf, em.cond_pmf))) * 4
-    s_bound, s_by = bound(n * (1 + 4 + 36 + 8) + tables + n * 13,
-                          FLOP_PER_STEP * steps + FLOP_PER_EXTRA_DRAW * extra)
-    d_bounds, d_counts = drt_bounds(n, kd, cfg)
+    env = sum(getattr(em, f).numel() for f in ("data", "alias_tab", "row_pmf", "cond_pmf")
+              if hasattr(em, f))
+    return (m.grid.numel() + m.majorant_grid.numel() + env) * 4
+
+
+def adjoint_bound(n, stats, cfg, scene):
+    """Least time of volpath_adjoint at this run's counts: the bytes it must
+    move (tables read once; o, d, L, dL in; reservoir and counters out, 137 B
+    a ray; the sigma and albedo gradient grids written once) against the
+    flops of its events.  ``gather_ms`` counts instead the bytes its events
+    fetch: 132 B per event, 128 B of atomics per real collision, 32 B per
+    transmittance sample and per replay collision, 120 B per ray."""
+    events = int(stats["steps"].sum())
+    real = int(stats["events"][:, 0].sum())
+    replay = int(stats["events"][:, 1].sum())
+    per_seg = cfg.trans_grad_samples + int(cfg.use_drt and cfg.use_drt_subsampling)
+    samples = int(stats["alt_dim"].sum()) // per_seg * cfg.trans_grad_samples
+    # every event hashes two primary draws (REPLAY re-reads them at rp_dim
+    # without advancing dim); alt draws and the primary stream's draws
+    # beyond two an event are extra
+    extra_draws = int(stats["alt_dim"].sum()) + max(0, int(stats["dim"].sum()) - 2 * events)
+    grads = scene.medium.params.sigma_t[..., 0].numel() * 16
+    req = bound(table_bytes(scene) + grads + 137 * n,
+                FLOP_PER_STEP * events + FLOP_PER_EXTRA_DRAW * extra_draws)
+    gather_ms, _ = bound(132 * events + 128 * real + 32 * (samples + replay) + 120 * n, 0)
+    return req, gather_ms, {"events": events, "real_collisions": real,
+                            "replay_collisions": replay, "trans_samples": samples}
+
+
+def drt_bounds(n, k, res, scene):
+    """Least times of the four DRT kernels at this run's counts, from the
+    bytes they must move (tables read once, per-lane I/O, the gradient grids
+    written once) against their operations (4 + 8 TEA rounds per wavefront
+    draw, FLOP_PER_STEP per tracking step); and the bytes their steps fetch
+    (132 B per step, 128 B of reads and 128 B of atomics per scattered
+    vertex) as ``gather_ms``."""
+    hash_ops = TEA_OPS_PER_ROUND * 12
+    trips_a = int(k["trips_a"].sum())
+    trips_b = int(k["trips_b"].sum())
+    active = int((res.active & k["found"]).sum())
+    tables = table_bytes(scene)
+    m = scene.medium
+    grids = m.grid.numel() * 4
+    grads = m.params.sigma_t[..., 0].numel() * 16
+    req = {
+        "volpath_drt_walk": bound(grids + m.majorant_grid.numel() * 4 + n * (29 + 26),
+                                  trips_a * (2 * hash_ops + FLOP_PER_STEP)),
+        "volpath_drt_nee": bound(tables + n * (25 + 16),
+                                 trips_b * (hash_ops + FLOP_PER_STEP) + 2 * hash_ops * active),
+        "volpath_drt_phase": bound(n * (12 + 8 + 1 + 48 + 9), n * (2 * hash_ops + 100)),
+        "volpath_drt_scatter": bound(grids + grads + n * 1 + active * (12 + 4 + 36),
+                                     active * 150),
+    }
+    gather = {
+        "volpath_drt_walk": 132 * trips_a + n * (29 + 26),
+        "volpath_drt_nee": 132 * trips_b + 28 * active + n * (25 + 16),
+        "volpath_drt_phase": n * (12 + 8 + 1 + 48 + 9),
+        "volpath_drt_scatter": n * 1 + active * (12 + 4 + 36 + 128 + 128),
+    }
+    return req, {key: bound(v, 0)[0] for key, v in gather.items()}, {
+        "walk_steps": trips_a, "nee_steps": trips_b, "vertices": active}
+
+
+def training_kernels(train, truth, check):
+    """Kernel-line entries of the training path's kernels: launches in the
+    main run (and per step); times of their launches in the recorded step from
+    the ground-truth grids (walks as long as late in a run), with bounds
+    from that step's counts; plain times and errors from ``check_step`` on
+    that step."""
+    runs = {k: {"launches": train["launches"][k],
+                "launches_per_train_step": train["launches"][k] / len(train["iterations"])}
+            for k in TRAIN_KERNELS}
+    parts = train["truth_step"]["parts_ms"]
+    a = truth["adjoint"]
+    cfg, scene, n = a["cfg"], a["scene"], a["o"].shape[0]
+    (a_bound, a_by), a_gather, a_counts = adjoint_bound(n, a["stats"], cfg, scene)
+    k = check["drt_stats"]
+    rec_steps = int(k["rec_stats"]["steps"].sum())
+    rec_extra = max(0, int(k["rec_stats"]["dim"].sum()) - 2 * rec_steps)
+    s_bound, s_by = bound(table_bytes(scene) + n * (49 + 13),
+                          FLOP_PER_STEP * rec_steps + FLOP_PER_EXTRA_DRAW * rec_extra)
+    s_gather, _ = bound(132 * rec_steps + 28 * rec_extra / 5 + 49 * n, 0)
+    d_req, d_gather, d_counts = drt_bounds(n, k, truth["drt"]["res"], scene)
     src = "uivr_tpu_torch/ops/csrc/"
+    shape = "janga-smoke step from the ground truth"
     out = [
         {"name": "volpath_adjoint", "route": "cuda", "source": src + "volpath_adjoint.cu",
-         "replaces": "uivr_tpu/ops/volpath_step.py:673", "launches": per_step["volpath_adjoint"],
-         "max_abs_err": adj["max_abs_err"], "ms": a_ms, "plain_ms": adj["plain_ms"],
-         "plain_shape": f"{adj['rays']} rays", "bound_ms": a_bound, "bound_by": a_by,
-         "library_ms": None, "agreement": min(adj["agreement"].values()),
-         "shape": f"{n} adjoint rays, janga-smoke step on the ground truth", **a_counts},
+         "replaces": "uivr_tpu/ops/volpath_step.py:673", **runs["volpath_adjoint"],
+         "max_abs_err": check["adjoint_max_abs_err"],
+         "ms": parts["volpath_adjoint"], "plain_ms": check["adjoint_plain_ms"],
+         "plain_shape": f"{SLICE} of its rays", "bound_ms": a_bound, "bound_by": a_by,
+         "gather_bound_ms": a_gather, "library_ms": None,
+         "agreement": min(check["adjoint_agreement"].values()),
+         "shape": f"{n} adjoint rays, {shape}", **a_counts},
         {"name": "volpath_primal_state", "route": "cuda", "source": src + "volpath_primal.cu",
          "replaces": "uivr_tpu/ops/volpath_step.py:303 (path_state entry)",
-         "launches": per_step["volpath_primal_state"],
-         "max_abs_err": drt["max_abs_err"]["volpath_primal_state"], "ms": s_ms,
-         "plain_ms": drt["plain_ms"]["volpath_primal_state"],
-         "plain_shape": f"{drt['vertices']} path states", "bound_ms": s_bound,
-         "bound_by": s_by, "library_ms": None, "agreement": drt["recursive_L_agreement"],
-         "shape": f"{n} path states, janga-smoke step on the ground truth",
-         "tracking_steps": steps},
+         **runs["volpath_primal_state"],
+         "max_abs_err": check["drt_max_abs_err"]["volpath_primal_state"],
+         "ms": parts["volpath_primal_state"],
+         "plain_ms": check["drt_plain_ms"]["volpath_primal_state"],
+         "plain_shape": f"{n} path states", "bound_ms": s_bound, "bound_by": s_by,
+         "gather_bound_ms": s_gather, "library_ms": None,
+         "agreement": check["drt_agreement"]["recursive_L"],
+         "shape": f"{n} path states, {shape}", "tracking_steps": rec_steps},
     ]
     replaces = {"volpath_drt_walk": "uivr_tpu/tracking/trackers.py:201",
                 "volpath_drt_nee": "uivr_tpu/integrators/volpathsimple.py:95",
                 "volpath_drt_phase": "uivr_tpu/integrators/volpath_flat.py:697",
                 "volpath_drt_scatter": "uivr_tpu/integrators/volpath_flat.py:720"}
     for name in DRT_KERNELS:
-        part = name.replace("volpath_", "")
-        b_ms, b_by = d_bounds[name]
+        b_ms, b_by = d_req[name]
         out.append({"name": name, "route": "cuda", "source": src + "volpath_drt.cu",
-                    "replaces": replaces[name], "launches": per_step[name],
-                    "max_abs_err": drt["max_abs_err"][name], "ms": step["parts"][part],
-                    "plain_ms": drt["plain_ms"][name],
-                    "plain_shape": f"{drt['vertices']} reservoir vertices",
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                    "agreement": min(drt["agreement"].values()),
-                    "shape": f"{n} reservoirs, janga-smoke step on the ground truth",
-                    **d_counts})
+                    "replaces": replaces[name], **runs[name],
+                    "max_abs_err": check["drt_max_abs_err"][name], "ms": parts[name],
+                    "plain_ms": check["drt_plain_ms"][name], "plain_shape": f"{n} reservoirs",
+                    "bound_ms": b_ms, "bound_by": b_by, "gather_bound_ms": d_gather[name],
+                    "library_ms": None,
+                    "agreement": min(check["drt_agreement"][f] for f in ("t_sel", "wsum", "found")),
+                    "shape": f"{n} reservoirs, {shape}", **d_counts})
     return out
 
 
@@ -906,13 +918,14 @@ def main():
         raise RuntimeError("main-path chunk: kernel disagrees with the plain twin")
 
     # ---------------------------------------------------------- 6-9. training
-    adj = phase_adjoint(card, dev, vs, janga, cube, random_pixel_rays)
-    drt = phase_drt(card, vs, adj)
-    train, _, truth = phase_train(card, dev, vs, janga, out_dir)
+    phase_adjoint(card, dev, vs, janga, cube, random_pixel_rays)
+    train, start, truth = phase_train(card, dev, vs, janga, out_dir)
+    check_step(card, vs, "start", start)
+    check = check_step(card, vs, "truth", truth)
     phase_cli(card, out_dir)
     for k in kernels:
         k["launches_per_train_step"] = train["launches"].get(k["name"], 0) / 3
-    kernels += training_kernels(vs, card, train, truth, adj["rec"], drt)
+    kernels += training_kernels(train, truth, check)
 
     # ---------------------------------------------------------- 10. kernels
     emit({"kernels": kernels, "card": card})

@@ -6,8 +6,12 @@
   per-lane results;
 - the twin's primal resumed from a ``PathState``;
 - the twin's ``sample_adjoint`` against JAX ``volpath_flat.sample_adjoint``
-  (DRT preset on the smoke fixture; free-flight with shadow RR on the
-  cube), by the relative L1 rule of ``tests/test_pallas_adjoint.py``;
+  (DRT preset on the smoke fixture), by the relative L1 rule of
+  ``tests/test_pallas_adjoint.py``; the free-flight adjoint with shadow RR
+  is held against the reference through the render op in
+  tests/test_torch_train.py;
+- a slice of rays keyed by their ray ids (``lane0``) walks as in the whole
+  batch;
 - the CUDA kernels' adjoint and delayed-DRT lane logic
   (``ops/csrc/volpath_adjoint.cuh``, ``volpath_drt.cuh``), compiled for the
   host with g++, against the twin on the cube fixture.
@@ -48,12 +52,11 @@ from uivr_tpu_torch.tracking import drt_distance, transmittance
 SEED = 17
 ADJ_CASES = {   # fixture, integrator settings
     "smoke-drt": ("smoke", dict(max_depth=4, trans_grad_samples=2)),
-    "cube-basic-rr": ("cube", dict(max_depth=4, trans_grad_samples=2, use_drt=False,
-                                   shadow_rr=0.1)),
 }
 LANE_CASES = {   # the host-built lane logic against the twin, on the cube
     "cube-drt": ("cube", dict(max_depth=4, trans_grad_samples=2)),
-    "cube-basic-rr": ADJ_CASES["cube-basic-rr"],
+    "cube-basic-rr": ("cube", dict(max_depth=4, trans_grad_samples=2, use_drt=False,
+                                   shadow_rr=0.1)),
     "cube-drt-no-nee": ("cube", dict(max_depth=6, trans_grad_samples=3, use_nee=False)),
 }
 
@@ -277,12 +280,40 @@ def test_kernel_lane_logic_matches_twin(case, scenes, twin):
 
 def test_adjoint_wrappers_on_cpu_are_the_twins(scenes, twin):
     s = scenes["cube"]
-    cfg = VolpathConfig(**ADJ_CASES["cube-basic-rr"][1])
+    cfg = VolpathConfig(**LANE_CASES["cube-basic-rr"][1])
     before = dict(volpath_step.LAUNCHES)
     calls = dict(volpath_flat.CALLS)
     L = twin["cube-basic-rr"]["L"]
     g = volpath_step.sample_adjoint_kernel(cfg, s["tsc"], s["o"], s["d"], SEED,
                                            torch.from_numpy(s["dL"]), L)
-    assert volpath_step.LAUNCHES == before
     assert volpath_flat.CALLS["volpath_adjoint"] == calls["volpath_adjoint"] + 1
     assert torch.equal(g.sigma_t, twin["cube-basic-rr"]["grads"].sigma_t)
+    # the DRT wrapper hands return_stats to the twin
+    t = twin["cube-drt"]
+    res = t["walk"][1]
+    adjoint = _reservoir_get(res) * torch.from_numpy(s["dL"])
+    acc, st = volpath_step.drt_backward_kernel(
+        VolpathConfig(**LANE_CASES["cube-drt"][1]), s["tsc"], SEED, res, adjoint,
+        GradAccum(*[a.clone() for a in t["walk"][0]]), return_stats=True)
+    assert torch.equal(finalize_accum(acc, s["tsc"].medium).sigma_t, t["grads"].sigma_t)
+    assert st["k_a"] > 0 and st["rec_L"].shape == (1024, 3)
+    assert volpath_step.LAUNCHES == before
+
+
+def test_twin_keys_a_slice_by_ray_ids(scenes, twin):
+    """Rays lane0.. of a batch, walked alone with ``lane0``, draw and
+    return what the whole batch gave them."""
+    s, t = scenes["cube"], twin["cube-drt"]
+    cfg = VolpathConfig(**LANE_CASES["cube-drt"][1])
+    k = 600
+    L, _ = volpath_flat.sample_primal(cfg, s["tsc"], s["o"][k:], s["d"][k:], SEED, lane0=k)
+    assert torch.equal(L, t["L"][k:])
+    _, res, st = volpath_flat.adjoint_walk(cfg, s["tsc"], s["o"][k:], s["d"][k:], SEED,
+                                           torch.from_numpy(s["dL"][k:]), L, lane0=k)
+    _, res_all, st_all = t["walk"]
+    for key in ("dim", "alt_dim", "steps"):
+        assert torch.equal(st[key], st_all[key][k:]), key
+    assert torch.equal(res.wsum, res_all.wsum[k:]) and torch.equal(res.depth, res_all.depth[k:])
+    _, other = volpath_flat.adjoint_walk(cfg, s["tsc"], s["o"][k:], s["d"][k:], SEED,
+                                         torch.from_numpy(s["dL"][k:]), L)[1:]
+    assert not torch.equal(other["dim"], st["dim"])     # keyed from 0: other draws

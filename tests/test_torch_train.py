@@ -4,52 +4,56 @@
   ``upsample_params`` on equal inputs (allclose at 1e-6);
 - ``.vol`` files byte-identical, and the full-state ``.npz`` checkpoint
   readable by either package;
-- the autograd render op (``render.batched.make_render``):
-  ``loss.backward()`` against ``jax.value_and_grad`` through the reference's
-  ``make_render`` on the smoke fixture, 8 pixels x 2 spp;
-- ``run_optimization``: two iterations on the cube fixture at batch 64 draw
-  the same seeds and pixels as the reference, with losses within 5%.
+- ``run_optimization``: two iterations on the cube fixture at batch 64
+  draw the same (seed, seed_grad) pairs and pixels as the reference, with
+  losses within 5% and final grids within 5% relative L1;
+- the autograd render op (``render.batched.make_render``) on the inputs of
+  the reference run's first step: ``loss.backward()`` against the loss and
+  gradient of the reference's jitted step, which is ``jax.value_and_grad``
+  through its ``make_render`` (the gradient read back from Adam's first
+  moment, ``mu = (1 - beta1) g`` from a zero state), so both tests share
+  one reference compile.
 
-The integrator of the last two is the free-flight estimator
-(``use_drt=False``): the DRT adjoint is held against the reference in
-tests/test_torch_adjoint.py, and each reference compile of the DRT
-backward costs seconds of the tier-1 budget.
+The integrator of the last two is the free-flight estimator with shadow
+Russian roulette (``use_drt=False``, ``shadow_rr=0.1``): the DRT adjoint
+is held against the reference in tests/test_torch_adjoint.py.
 """
 import json
 import os
 
 import numpy as np
+import pytest
 import torch
 
 import jax
 import jax.numpy as jnp
 
 from torch_common import bundle_to_numpy
-from uivr_tpu.config import cube_test_scene, smoke_scene
+from uivr_tpu.config import cube_test_scene
 from uivr_tpu.core import vol_io as j_vol_io
 from uivr_tpu.core.rng import sample_tea_32 as j_tea
 from uivr_tpu.integrators import VolpathConfig as JCfg
 from uivr_tpu.opt import checkpoint as j_checkpoint
+from uivr_tpu.opt import loop as j_loop
 from uivr_tpu.opt import losses as j_losses
 from uivr_tpu.opt import optimizer as j_optimizer
 from uivr_tpu.opt import schedule as j_schedule
 from uivr_tpu.opt.loop import OptimizationConfig as JOptCfg
 from uivr_tpu.opt.loop import run_optimization as j_run_optimization
-from uivr_tpu.render.batched import RenderSettings as JSettings
-from uivr_tpu.render.batched import make_render as j_make_render
-from uivr_tpu.render.batched import sample_batch_pixels as j_sample_batch_pixels
 from uivr_tpu.scene.medium import MediumParams as JParams
 from uivr_tpu_torch.config import adam_state_from_numpy, bundle_from_numpy, params_from_numpy
 from uivr_tpu_torch.core import vol_io
-from uivr_tpu_torch.core.rng import sample_tea_32
 from uivr_tpu_torch.integrators import VolpathConfig
-from uivr_tpu_torch.opt import checkpoint, losses, optimizer, schedule
+from uivr_tpu_torch.opt import checkpoint, losses, loop, optimizer, schedule
 from uivr_tpu_torch.opt.loop import OptimizationConfig, run_optimization
-from uivr_tpu_torch.render.batched import RenderSettings, make_render, sample_batch_pixels
+from uivr_tpu_torch.render.batched import RenderSettings, make_render
 from uivr_tpu_torch.scene.medium import MediumParams
 
 FIELDS = MediumParams._fields
-BASIC = dict(max_depth=4, trans_grad_samples=2, use_drt=False)
+BASIC = dict(max_depth=4, trans_grad_samples=2, use_drt=False, shadow_rr=0.1)
+RUN = dict(spp=2, primal_spp_factor=2, n_iter=2, batch_size=64, preview_stride=0,
+           checkpoint_stride=0, checkpoint_initial=False, render_initial=False,
+           render_final=False)
 
 
 def _grids(seed, shape=(3, 4, 5)):
@@ -147,66 +151,85 @@ def test_vol_files_and_state_checkpoints_cross_over(tmp_path, monkeypatch):
         assert np.array_equal(getattr(tst2.mu, k).numpy(), m[k])
 
 
-def test_render_op_backward_matches_jax():
-    jb = smoke_scene(res=16, resx=32, resy=32, n_sensors=2)
-    tb = bundle_from_numpy(bundle_to_numpy(jb), device="cpu")
-    js = JSettings(integrator=JCfg(**BASIC), medium=jb.medium_cfg,
-                   film_size=jb.film_size, spp=2, spp_grad=2)
-    ts = RenderSettings(integrator=VolpathConfig(**BASIC), medium=tb.medium_cfg,
-                        film_size=tb.film_size, spp=2, spp_grad=2)
-    seed, seed_grad = 5, 6
-    jsidx, jpix = j_sample_batch_pixels(jnp.uint32(seed), 2, jb.film_size, 8)
-    sidx, pix = sample_batch_pixels(seed, 2, tb.film_size, 8, device="cpu")
-    assert np.array_equal(np.asarray(jpix), pix.numpy())
-    ref = np.random.RandomState(9).rand(8, 3).astype(np.float32)
-    jrender = j_make_render(js, jb.to_world)
+def _recording(make_step, calls):
+    """``_make_step`` whose steps also record, per call, what they were
+    given and the loss and Adam first moment they returned."""
+    def make(*a, **k):
+        step = make_step(*a, **k)
 
-    def f(p):
-        img = jrender(p, jb.emitter, jb.cameras, jsidx, jpix, jnp.uint32(seed),
-                      jnp.uint32(seed_grad))
-        return jnp.mean(jnp.abs(img - jnp.asarray(ref)))
-
-    jloss, jg = jax.jit(jax.value_and_grad(f))(jb.start_from)
-    leaves = MediumParams(*[p.clone().requires_grad_(True) for p in tb.start_from])
-    img = make_render(ts, tb.to_world)(leaves, tb.emitter, tb.cameras, sidx, pix, seed,
-                                       seed_grad)
-    loss = losses.l1(img, torch.from_numpy(ref))
-    loss.backward()
-    assert abs(loss.item() - float(jloss)) <= 0.05 * abs(float(jloss))
-    for k in ("sigma_t", "albedo"):
-        a, b = np.asarray(getattr(jg, k)), getattr(leaves, k).grad.numpy()
-        assert np.abs(a).sum() > 0
-        assert np.abs(a - b).sum() / np.abs(a).sum() < 0.05, k
-    assert not leaves.emission.grad.any()
+        def run(params, opt_state, emitter, cameras, sensor_idx, pixels, ref, seed,
+                seed_grad, lr):
+            out = step(params, opt_state, emitter, cameras, sensor_idx, pixels, ref, seed,
+                       seed_grad, lr)
+            calls.append(dict(seeds=(int(seed), int(seed_grad)),
+                              sensor_idx=np.asarray(sensor_idx).astype(np.int64),
+                              pixels=np.asarray(pixels).astype(np.int64),
+                              ref=np.array(ref), loss=float(out[2]), mu=out[1].mu))
+            return out
+        return run
+    return make
 
 
-def test_run_optimization_matches_jax(tmp_path):
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Two iterations of ``run_optimization`` on the cube fixture in each
+    package, every step recorded."""
     jb = cube_test_scene(resx=16, resy=16)
     tb = bundle_from_numpy(bundle_to_numpy(jb), device="cpu")
     ref = np.random.RandomState(10).rand(1, 16, 16, 3).astype(np.float32)
-    kw = dict(spp=2, primal_spp_factor=2, n_iter=2, batch_size=64, preview_stride=0,
-              checkpoint_stride=0, checkpoint_initial=False, render_initial=False,
-              render_final=False)
-    j_run_optimization(str(tmp_path / "jax"), JOptCfg(**kw), jb, JCfg(**BASIC),
-                       ref_images=ref, resume=False, verbose=False)
-    out = run_optimization(str(tmp_path / "port"), OptimizationConfig(**kw), tb,
-                           VolpathConfig(**BASIC), ref_images=ref, resume=False,
-                           verbose=False)
-    for it in range(2):   # the seeds and pixels each iteration draws
-        js, _ = j_tea(2 * it, 988378)
-        ts_, _ = sample_tea_32(2 * it, 988378)
-        assert int(js) == ts_
-        jsi, jpx = j_sample_batch_pixels(js, 1, jb.film_size, 64)
-        tsi, tpx = sample_batch_pixels(ts_, 1, tb.film_size, 64, device="cpu")
-        assert np.array_equal(np.asarray(jpx), tpx.numpy())
+    out = tmp_path_factory.mktemp("runs")
+    calls = {"jax": [], "port": []}
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(j_loop, "_make_step", _recording(j_loop._make_step, calls["jax"]))
+        mp.setattr(loop, "_make_step", _recording(loop._make_step, calls["port"]))
+        j_run_optimization(str(out / "jax"), JOptCfg(**RUN), jb, JCfg(**BASIC),
+                           ref_images=ref, resume=False, verbose=False)
+        final = run_optimization(str(out / "port"), OptimizationConfig(**RUN), tb,
+                                 VolpathConfig(**BASIC), ref_images=ref, resume=False,
+                                 verbose=False)
+    return dict(dir=out, calls=calls, tb=tb, final=final)
+
+
+def test_run_optimization_matches_jax(runs):
+    j, t = runs["calls"]["jax"], runs["calls"]["port"]
+    assert len(j) == len(t) == 2
+    assert [c["seeds"] for c in t] == [c["seeds"] for c in j]
+    for cj, ct in zip(j, t):
+        assert np.array_equal(ct["sensor_idx"], cj["sensor_idx"])
+        assert np.array_equal(ct["pixels"], cj["pixels"])
 
     def losses_of(d):
         with open(os.path.join(d, "metrics.jsonl")) as f:
             return [r["loss"] for r in map(json.loads, f) if "loss" in r]
 
-    jl, tl = losses_of(tmp_path / "jax"), losses_of(tmp_path / "port")
+    jl, tl = losses_of(runs["dir"] / "jax"), losses_of(runs["dir"] / "port")
     assert len(jl) == len(tl) == 2
     np.testing.assert_allclose(tl, jl, rtol=0.05)
-    jfinal, _ = j_vol_io.read_vol(str(tmp_path / "jax" / "params" / "final-medium1_sigma_t.vol"))
-    assert out.sigma_t.shape == jfinal.shape
-    assert not torch.equal(out.sigma_t, tb.start_from.sigma_t)
+    for key in ("sigma_t", "albedo"):
+        name = f"final-medium1_{key}.vol"
+        a, _ = j_vol_io.read_vol(str(runs["dir"] / "jax" / "params" / name))
+        b, _ = vol_io.read_vol(str(runs["dir"] / "port" / "params" / name))
+        assert a.shape == b.shape
+        assert np.abs(a - b).sum() / np.abs(a).sum() < 0.05, key
+        assert np.array_equal(b, getattr(runs["final"], key).numpy())
+    assert not torch.equal(runs["final"].sigma_t, runs["tb"].start_from.sigma_t)
+
+
+def test_render_op_backward_matches_jax(runs):
+    tb, c = runs["tb"], runs["calls"]["jax"][0]
+    ts = RenderSettings(integrator=VolpathConfig(**BASIC), medium=tb.medium_cfg,
+                        film_size=tb.film_size, spp=RUN["spp"] * RUN["primal_spp_factor"],
+                        spp_grad=RUN["spp"])
+    leaves = MediumParams(*[p.clone().requires_grad_(True) for p in tb.start_from])
+    img = make_render(ts, tb.to_world)(leaves, tb.emitter, tb.cameras,
+                                       torch.from_numpy(c["sensor_idx"]),
+                                       torch.from_numpy(c["pixels"]), *c["seeds"])
+    loss = losses.l1(img, torch.from_numpy(c["ref"]))
+    loss.backward()
+    assert abs(loss.item() - c["loss"]) <= 0.05 * abs(c["loss"])
+    for k in ("sigma_t", "albedo"):
+        a = np.asarray(getattr(c["mu"], k)) / np.float32(1.0 - 0.9)
+        b = getattr(leaves, k).grad.numpy()
+        assert np.abs(a).sum() > 0
+        assert np.abs(a - b).sum() / np.abs(a).sum() < 0.05, k
+    assert not leaves.emission.grad.any()

@@ -341,20 +341,25 @@ def _run_lanes(step, full, live_of, mode_of):
     return full
 
 
+def _lane_sampler(seed, n: int, dev, lane0: int) -> LaneSampler:
+    """The primary streams of rays ``lane0 .. lane0 + n - 1``: a slice of
+    a batch draws what the whole batch draws on those rays."""
+    return make_lane_sampler(seed, lanes=torch.arange(lane0, lane0 + n, device=dev))
+
+
 def sample_primal(cfg: VolpathConfig, scene: Scene, o, d, seed,
                   return_stats: bool = False,
-                  path_state: Optional[PathState] = None):
+                  path_state: Optional[PathState] = None, lane0: int = 0):
     """Plain primal estimate of world rays ``o``, ``d`` (n, 3), or of the
-    paths resumed from ``path_state`` (``o``, ``d`` unused then).
+    paths resumed from ``path_state`` (``o``, ``d`` unused then); the rays
+    are keyed as ray ids ``lane0`` onwards.
 
     Returns ``(L (n,3), escaped (n,))`` and, with ``return_stats``, a dict
     of per-lane ``dim`` (draws consumed), ``steps`` and ``depth``."""
     CALLS["volpath_primal"] += 1
     n = (o if path_state is None else path_state.o_l).shape[0]
     dev = (o if path_state is None else path_state.o_l).device
-    full = _init_carry(scene, o, d,
-                       make_lane_sampler(seed, n_lanes=n, device=dev),
-                       path_state)
+    full = _init_carry(scene, o, d, _lane_sampler(seed, n, dev, lane0), path_state)
     full = _run_lanes(lambda c: _flat_step(cfg, scene, c)[0], full,
                       lambda c: (c.mode != DONE) & (c.steps < cfg.max_steps),
                       lambda c: c.mode)
@@ -462,15 +467,17 @@ def _adjoint_step(cfg: VolpathConfig, scene: Scene, acc: GradAccum,
                          res=res)
 
 
-def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in):
-    """The adjoint's path-replay walk, without the delayed DRT term.
+def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
+                 lane0: int = 0):
+    """The adjoint's path-replay walk, without the delayed DRT term; the
+    rays are keyed as ray ids ``lane0`` onwards.
 
     Returns ``(acc, res, stats)``: the gradient accumulator, the per-lane
     DRT reservoirs and per-lane ``dim`` (primary draws), ``alt_dim`` (alt
     stream draws) and ``steps``."""
     m = scene.medium
     n = o.shape[0]
-    smp = make_lane_sampler(seed, n_lanes=n, device=o.device)
+    smp = _lane_sampler(seed, n, o.device, lane0)
     c = _init_carry(scene, o, d, smp)
     c = c._replace(result=state_in.clone())
     zu = torch.zeros(n, dtype=torch.int64, device=o.device)
@@ -509,8 +516,10 @@ def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
     sigma/albedo cotangents there.  Its auxiliary draws come from the
     global-counter sampler ``TEA(seed, 0x5151)``, so every lane's NEE and
     phase draws sit after the longest walk of the step before.  With
-    ``return_stats`` also returns the walk's results and the trip maxima
-    ``k_a`` (distance walk) and ``k_b`` (NEE transmittance)."""
+    ``return_stats`` also returns the walk's results, the trip maxima
+    ``k_a`` (distance walk) and ``k_b`` (NEE transmittance), the NEE
+    radiance, the resumed ``path_state`` and its radiance ``rec_L`` with
+    the resumed primal's ``rec_stats``."""
     CALLS["volpath_drt"] += 1
     m = scene.medium
     n = res.o_l.shape[0]
@@ -525,6 +534,7 @@ def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
     p = ray_point(res.o_l, t_safe, res.d_l)
 
     Li = torch.zeros_like(adjoint)
+    nee = Li
     k_b = 0
     if cfg.use_nee:
         dim_b = gs.dim
@@ -543,7 +553,8 @@ def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
         depth=next_depth, o_l=p, d_l=rec_dl, d_w=wo, maxt=rec_maxt,
         last_pdf=torch.where(active, ph_pdf, 1.0))
     rec_seed, _ = sample_tea_32(seed, 0x7177)
-    rec_Li, _ = sample_primal(cfg, scene, None, None, rec_seed, path_state=ps)
+    rec_Li, _, rec_stats = sample_primal(cfg, scene, None, None, rec_seed, True,
+                                         path_state=ps)
     Li = Li + rec_Li
 
     sig, alb = sigma_albedo_at(m, p)
@@ -555,6 +566,7 @@ def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
                          factor * sig[:, None], active)
     if return_stats:
         return acc, {"t_sel": t_sub, "wsum": w_drt, "found": found, "k_a": k_a,
-                     "k_b": k_b}
+                     "k_b": k_b, "nee": nee, "path_state": ps, "rec_L": rec_Li,
+                     "rec_stats": rec_stats}
     return acc
 

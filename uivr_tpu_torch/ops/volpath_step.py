@@ -50,6 +50,9 @@ from ..scene.scene import Scene
 LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_adjoint": 0, "volpath_drt_walk": 0, "volpath_drt_nee": 0,
             "volpath_drt_phase": 0, "volpath_drt_scatter": 0}
+# None, or a list to which every launch appends (kernel, start, end): CUDA
+# events recorded on the launch's stream just before and after it
+TIMINGS = None
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEADERS = ("rng.cuh", "volpath_lane.cuh", "volpath_adjoint.cuh",
@@ -205,10 +208,22 @@ def _load(name: str = "primal"):
     return _libs[name]
 
 
-def _check_launch(lib, rc: int, what: str) -> None:
+def _launch(key: str, launcher, *args) -> None:
+    """Call the ``extern "C"`` launcher of kernel ``key`` (it returns a CUDA
+    error code), raise on failure and count the launch.  With
+    :data:`TIMINGS` a list, also record CUDA events around it."""
+    ev = None
+    if TIMINGS is not None:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+    rc = launcher(*args)
     if rc != 0:
-        raise RuntimeError(f"{what} launch failed: "
-                           f"{lib.uivr_error_string(rc).decode()} ({rc})")
+        raise RuntimeError(f"{key} launch failed: "
+                           f"{_load('primal').uivr_error_string(rc).decode()} ({rc})")
+    LAUNCHES[key] += 1
+    if ev is not None:
+        ev[1].record()
+        TIMINGS.append((key, ev[0], ev[1]))
 
 
 def _need(t: torch.Tensor, name: str, device, dtype=torch.float32,
@@ -328,12 +343,11 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
                            path_state=path_state)
     lib = _load("primal")
     if path_state is None:
-        rc, key = lib.volpath_primal_launch(ctypes.byref(params), _stream(dev)), "volpath_primal"
+        _launch("volpath_primal", lib.volpath_primal_launch, ctypes.byref(params),
+                _stream(dev))
     else:
-        rc, key = (lib.volpath_primal_state_launch(ctypes.byref(params), _stream(dev)),
-                   "volpath_primal_state")
-    _check_launch(lib, rc, key)
-    LAUNCHES[key] += 1
+        _launch("volpath_primal_state", lib.volpath_primal_state_launch,
+                ctypes.byref(params), _stream(dev))
     if return_stats:
         return L, escaped, {"dim": _u32(dims), "steps": steps}
     return L, escaped
@@ -395,11 +409,8 @@ def adjoint_walk_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
         return volpath_flat.adjoint_walk(cfg, scene, o, d, seed, dL, state_in)
     acc = init_accum(scene.medium, need_emission=False)
     a, res, stats = adjoint_params(cfg, scene, o, d, seed, dL, state_in, acc)
-    lib = _load("adjoint")
-    _check_launch(_load("primal"),
-                  lib.volpath_adjoint_launch(ctypes.byref(a), _stream(o.device)),
-                  "volpath_adjoint")
-    LAUNCHES["volpath_adjoint"] += 1
+    _launch("volpath_adjoint", _load("adjoint").volpath_adjoint_launch, ctypes.byref(a),
+            _stream(o.device))
     return acc, res, {k: _u32(v) if k in ("dim", "alt_dim") else v
                       for k, v in stats.items()}
 
@@ -444,32 +455,41 @@ def drt_params(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
 
 
 def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
-                        adjoint: torch.Tensor, acc: GradAccum):
+                        adjoint: torch.Tensor, acc: GradAccum,
+                        return_stats: bool = False):
     """The delayed DRT term (``volpath_flat._drt_backward_flat``), adding
     into ``acc``.  On ``cuda`` tensors it runs the ``volpath_drt`` kernels
     (walk, NEE, phase, scatter) around ``volpath_primal_state_kernel``;
-    the wavefront counter's maxima stay on the device."""
+    the wavefront counter's maxima stay on the device.  ``return_stats``
+    returns the twin's stats too (``k_a`` and ``k_b`` read back from the
+    device), with the per-lane walk lengths ``trips_a`` and ``trips_b``."""
     if not res.o_l.is_cuda:
-        return volpath_flat._drt_backward_flat(cfg, scene, seed, res, adjoint, acc)
+        return volpath_flat._drt_backward_flat(cfg, scene, seed, res, adjoint, acc,
+                                               return_stats)
     dev = res.o_l.device
     D, out, ps, counts = drt_params(cfg, scene, seed, res, adjoint, acc)
-    lib, plib = _load("drt"), _load("primal")
+    lib = _load("drt")
     mis = int(cfg.use_drt_mis)
 
     def launch(which, key):
-        _check_launch(plib, lib.volpath_drt_launch(ctypes.byref(D), which, mis,
-                                                   _stream(dev)), key)
-        LAUNCHES[key] += 1
+        _launch(key, lib.volpath_drt_launch, ctypes.byref(D), which, mis, _stream(dev))
 
     launch(0, "volpath_drt_walk")
     if cfg.use_nee:
         launch(1, "volpath_drt_nee")
     launch(2, "volpath_drt_phase")
     rec_seed, _ = sample_tea_32(int(seed), 0x7177)
-    rec_L, _ = sample_primal_kernel(cfg, scene, None, None, rec_seed, path_state=ps)
-    D.rec_L = _need(rec_L, "recursive radiance", dev, shape=(res.o_l.shape[0], 3))
+    rec = sample_primal_kernel(cfg, scene, None, None, rec_seed, return_stats,
+                               path_state=ps)
+    D.rec_L = _need(rec[0], "recursive radiance", dev, shape=(res.o_l.shape[0], 3))
     launch(3, "volpath_drt_scatter")
-    return acc
+    if not return_stats:
+        return acc
+    k_a, k_b = counts.tolist()
+    return acc, {"t_sel": out["t_sel"], "wsum": out["wsum"], "found": out["found"],
+                 "k_a": k_a, "k_b": k_b, "nee": out["nee"], "path_state": ps,
+                 "rec_L": rec[0], "rec_stats": rec[2], "trips_a": out["trips_a"],
+                 "trips_b": out["trips_b"]}
 
 
 def sample_adjoint_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
@@ -499,10 +519,6 @@ def tea_i32(v0, v1, rounds: int = 6):
     a = v0.to(torch.int32).contiguous()   # wraps: the same 32 bits
     b = v1.to(torch.int32).contiguous()
     o0, o1 = torch.empty_like(a), torch.empty_like(b)
-    lib = _load("primal")
-    rc = lib.tea_launch(a.data_ptr(), b.data_ptr(), o0.data_ptr(), o1.data_ptr(),
-                        a.numel(), int(rounds),
-                        torch.cuda.current_stream(a.device).cuda_stream)
-    _check_launch(lib, rc, "tea")
-    LAUNCHES["tea"] += 1
+    _launch("tea", _load("primal").tea_launch, a.data_ptr(), b.data_ptr(), o0.data_ptr(),
+            o1.data_ptr(), a.numel(), int(rounds), _stream(a.device))
     return o0.to(torch.int64) & _M32, o1.to(torch.int64) & _M32
