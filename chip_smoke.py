@@ -3,61 +3,82 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each; any failure exits nonzero before the last line:
+Phases, one JSON line each; any failure exits nonzero before the last line.
+K6 (subcell classification) is on by default in every walking kernel; "K6
+off" is the same kernel on the same medium without its subcell table, which
+must give the same result:
 
 1. device: the card (``nvidia-smi`` name and power limit on a line of its
    own), torch and CUDA versions, and the kernels' nvcc builds (one nvcc
    per source, started together) with ptxas' registers and spills.
 2. tea (K1): ``tea_kernel`` against the plain ``tea_plain`` on 2**20 random
    (v0, v1) pairs at 5, 6 and 8 rounds; bit for bit.
-3. primal (K2 + K3): ``volpath_primal_kernel`` against the plain twin
-   (``engine="flat"``) on the same 2**16 camera rays at random pixels of
-   sensor 0: janga-smoke at full width (envmap, NEE on) and tiny-cube
-   (constant emitter) with NEE on and off.  A lane agrees when
-   |dL| <= 1e-4 (1 + |L|) on all three channels; janga-smoke needs >= 0.90
-   of lanes, tiny-cube >= 0.95, and every channel mean within 2%.  Also
-   the same janga rays through a build with ``--fmad=true``.
-4. render: ``python -m uivr_tpu_torch.cli.render --scene janga-smoke
-   --sensor 0 --spp 64`` (180 x 155 x 64 = 1,785,600 rays) with every
-   launch counter set to 0 just before; the kernels must have launched and
-   the plain twin must not have run.  The EXR is read back and checked.
-   Then three more renders (host clock) and one timed part by part with
-   CUDA events: scene set-up, ray generation, kernel, reduction.
-5. the primal kernels at the shape the render gave them (its first chunk
-   of 2**20 rays), timed with CUDA events beside their plain versions.
-6. adjoint (K4 + K5): ``volpath_adjoint_kernel`` against the twin's
-   adjoint walk after one replay primal each, on the same rays, seed and
+3. primal (K2 + K3 + K6): ``volpath_primal_kernel`` on 2**16 camera rays at
+   random pixels of sensor 0, from the ground-truth grids: janga-smoke and
+   dust-devil at full width (envmap, NEE on) and tiny-cube (constant
+   emitter) with NEE on and off.  K6 on must equal K6 off on every lane
+   (radiance bit for bit, escapes, draws, steps).  Against the plain twin
+   (``engine="flat"``) a lane agrees when |dL| <= 1e-4 (1 + |L|) on all
+   three channels; janga-smoke and dust-devil need >= 0.90 of lanes,
+   tiny-cube >= 0.95, and every channel mean within 2%; janga's rays also
+   go through a build with ``--fmad=true``.  K6 must classify MAIN nulls
+   on dust-devil, and on janga-sparse (janga's density kept in a central
+   block under one global majorant, on/off only) both MAIN nulls and
+   SHADOW events in empty subcells.
+4. render: ``python -m uivr_tpu_torch.cli.render --scene <s> --sensor 0
+   --spp 64`` for janga-smoke and dust-devil (1,785,600 rays each) with
+   every launch counter set to 0 just before; the kernels and K6 must have
+   launched and the plain twin must not have run.  The EXR is read back
+   and checked.  Then three more renders (host clock) and four timed part
+   by part with CUDA events (scene set-up, ray generation, kernel,
+   reduction), K6 on, off, off, on.
+5. the primal kernel at the shape the render gave it (its first chunk of
+   2**20 rays), K6 on and off, beside its plain version (janga-smoke; K6
+   on and off on dust-devil's chunk too).
+6. adjoint (K4 + K5 + K6): ``volpath_adjoint_kernel`` after one replay
+   primal each, K6 on against off (draws, steps and reservoir depth equal
+   on every lane, gradients' relative L1 <= 1e-4: atomics reorder the
+   sums), and against the twin's adjoint walk on the same rays, seed and
    random dL: janga-smoke, 8,192 random-pixel rays, under
-   ``volpathsimple-drt`` and under ``volpathsimple-basic`` with shadow RR
-   0.05; tiny-cube, 16,384 rays, NEE on and off.  Per-lane primary draws,
-   alt draws and reservoir depth equal on >= 0.90 of lanes (janga) and
-   >= 0.95 (cube); gradients' relative L1 sum|a-b| / sum|a| <= 1e-2 on
-   sigma and albedo (atomics reorder the sums).
-7. train: ``opt.run_optimization`` on janga-smoke with
-   ``volpathsimple-drt`` at full width (batch 32,768, 16 adjoint spp,
-   primal factor 64: 33,554,432 primal and 524,288 adjoint rays a step),
-   3 iterations, 128^3 grids trained (no upsampling), references at 64
-   spp (a cut: the step does not depend on it), counters set to 0 just
-   before: the kernels launched, the twins never ran, parameters changed,
-   the .vol checkpoints read back.  Then ``run_optimization`` for one
-   step from the ground-truth grids.  ``StepRecorder`` keeps what each
-   step did: its seconds, loss and gradients, the inputs and outputs of
-   its adjoint and DRT calls, and CUDA events around the pixel draw, the
-   step and every kernel launch (``volpath_step.TIMINGS``), which give
+   ``volpathsimple-drt`` and ``volpathsimple-basic`` with shadow RR 0.05;
+   tiny-cube, 16,384 rays, NEE on and off (per-lane primary draws, alt
+   draws and reservoir depth equal on >= 0.90 of lanes for janga, >= 0.95
+   for the cube; gradients' relative L1 <= 1e-2); dust-devil, 8,192 rays,
+   K6 on against off only (its twin check is phase 8's).
+7. train: ``opt.run_optimization`` with ``volpathsimple-drt`` at full
+   width (batch 32,768, 16 adjoint spp, primal factor 64: 33,554,432
+   primal and 524,288 adjoint rays a step), grids at full resolution (no
+   upsampling), counters set to 0 just before: the kernels and K6
+   launched, the twins never ran, parameters changed.  janga-smoke: 3
+   iterations, 128^3 grids, references at 64 spp, the .vol checkpoints
+   read back; dust-devil: 2 iterations, 256^3 grids, the ``-from-nerf``
+   schedule (lr 1e-4, albedo factor 100), references at 16 spp (a cut:
+   the step does not depend on them).  Then, for each, ``run_optimization``
+   for one step from the ground-truth grids.  ``StepRecorder`` keeps what
+   each step did: its seconds, loss and gradients, the inputs and outputs
+   of its adjoint and DRT calls, and CUDA events around the pixel draw,
+   the step and every kernel launch (``volpath_step.TIMINGS``), which give
    the step's parts.
-8. adjoint_step and drt (``check_step``), for the first step and the
-   ground-truth step: the adjoint call's per-lane primary draws, alt
-   draws and reservoir depth on its last 8,192 rays against the twin
-   keyed by their ray ids (``lane0``), >= 0.90 of lanes, and the step's
-   gradients finite and nonzero; ``drt_backward_kernel`` against
-   ``volpath_flat._drt_backward_flat`` on all 524,288 reservoirs of the
-   step: equal wavefront maxima K_A and K_B, per-lane t_sel, wsum and
-   found equal on >= 0.90 of lanes, gradients' relative L1 <= 1e-2.
+8. adjoint_step and drt (``check_step``), for janga's first step and
+   truth step and dust-devil's truth step: the adjoint call's per-lane
+   primary draws, alt draws and reservoir depth on its last 8,192 rays
+   against the twin keyed by their ray ids (``lane0``), >= 0.90 of lanes,
+   and the step's gradients finite and nonzero; ``drt_backward_kernel``
+   against ``volpath_flat._drt_backward_flat`` on all 524,288 reservoirs
+   of the step: equal
+   wavefront maxima K_A and K_B, per-lane t_sel, wsum and found equal on
+   >= 0.90 of lanes, gradients' relative L1 <= 1e-2.
 9. cli: ``uivr_tpu_torch.cli.reproduce`` on tiny-cube (20 iterations at
    batch 557); metrics.jsonl must hold losses and the final checkpoint
-   must exist.
+   must exist.  fd: ``uivr_tpu_torch.cli.fd`` on tiny-cube (spp 1024, res
+   16, all three grids) under ``volpathsimple-drt`` and
+   ``volpathsimple-basic``, K6 on and off: kernels only, no twin, the same
+   FD values and adjoint gradients (relative L1 <= 1e-4).
 10. kernels: every kernel of both paths at the shape the main path gives
-   it, with its launches, time, plain version's time, bound and agreement.
+   it, with its launches, time, plain version's time, bound and agreement;
+   K6's row gives the walking kernels' times with K6 on and off at the
+   main path's shapes and its counters (MAIN nulls classified, fetches
+   avoided).
 11. the last line: {"ok": true, "device": {...}}.
 
 ``bound_ms`` is the larger of the bytes the function must move (each input
@@ -68,9 +89,10 @@ this run's per-lane tracking steps and draws: ``FLOP_PER_STEP`` per
 tracking event and ``FLOP_PER_EXTRA_DRAW`` per draw beyond the two every
 event takes (one per real collision, four per scatter with NEE).
 ``gather_bound_ms`` counts instead the bytes the events fetch: 132 B of
-grid and majorant per event, 28 B of envmap per scatter, 36 B per ray.
-The training kernels' bounds (``adjoint_bound``, ``drt_bounds``) follow
-the same two rules, from this run's per-lane counters.
+grid and majorant per event (8 B, majorant and subcell bound, for an event
+K6 classified), 28 B of envmap per scatter, 36 B per ray.  The training
+kernels' bounds (``adjoint_bound``, ``drt_bounds``) follow the same two
+rules, from this run's per-lane counters.
 """
 import dataclasses
 import json
@@ -177,6 +199,38 @@ def ptxas_report(log):
 def lane_agreement(L, Lref):
     ok = ((L - Lref).abs() <= 1e-4 * (1.0 + Lref.abs())).all(dim=-1)
     return ok.float().mean().item()
+
+
+def no_cls(sc):
+    """The same scene with K6 off: its medium without the subcell table."""
+    return sc._replace(medium=sc.medium._replace(sub=None))
+
+
+def cls_counts(cls):
+    """Sums of the walking kernels' per-lane K6 counters (n, 5), with the
+    share of MAIN nulls classified and the sigma fetches avoided."""
+    from uivr_tpu_torch.ops.volpath_step import CLS_COUNTERS
+    c = dict(zip(CLS_COUNTERS, cls.to("cpu").long().sum(0).tolist()))
+    c["main_nulls_classified_share"] = c["cls_main_nulls"] / max(c["main_nulls"], 1)
+    c["fetches_avoided"] = c["cls_main_nulls"] + c["cls_shadow"]
+    c["fetches_avoided_share"] = c["fetches_avoided"] / max(c["candidates"], 1)
+    return c
+
+
+def on_off_ms(on, off, reps=2):
+    """CUDA-event times (ms) of two versions of a launch, in turns (on,
+    off, off, on), each the mean of its two turns."""
+    a = cuda_ms(on, reps)
+    b = cuda_ms(off, reps) + cuda_ms(off, reps)
+    return (a + cuda_ms(on, reps)) / 2, b / 2
+
+
+def event_fetch_bytes(events, cls):
+    """The fetch model's bytes of ``events`` tracking events: 132 B of grid
+    corners and majorant each, but 8 B (majorant + subcell bound) for the
+    events K6 classified."""
+    classified = cls["fetches_avoided"] if cls else 0
+    return 132 * (events - classified) + 8 * classified
 
 
 # ------------------------------------------------------------------ training
@@ -335,45 +389,62 @@ class Laps:
             setattr(self.module, name, fn)
 
 
-def phase_adjoint(card, dev, vs, janga, cube, rays_of):
-    """Kernel vs twin on the adjoint walk (after one replay primal each)."""
+def phase_adjoint(card, dev, vs, janga, dust, cube, rays_of):
+    """The adjoint walk (after one replay primal each): the kernel with K6
+    on against K6 off on the same inputs (draws and reservoir depth equal on
+    every lane, gradients within a relative L1 of 1e-4, the atomics' order
+    aside), and against the twin where ``need`` is given."""
     import torch
     from uivr_tpu_torch.config import get_int_config
     from uivr_tpu_torch.integrators import volpath_flat
     rs = np.random.RandomState(20261017)
     runs = [("janga-smoke", janga, "volpathsimple-drt", {}, 8192, 0.90),
             ("janga-smoke", janga, "volpathsimple-basic", {"shadow_rr": 0.05}, 8192, 0.90),
+            ("dust-devil", dust, "volpathsimple-drt", {}, 8192, None),
             ("tiny-cube", cube, "volpathsimple-drt", {}, 16384, 0.95),
             ("tiny-cube", cube, "volpathsimple-drt", {"use_nee": False}, 16384, 0.95)]
     for name, (preset, b, sc), integ, kw, n, need in runs:
         cfg = dataclasses.replace(get_int_config(integ).create(max_depth=preset.max_depth), **kw)
+        off = no_cls(sc)
         o, d = rays_of(b, n)
         dL = torch.from_numpy(rs.rand(n, 3).astype(np.float32) / n).to(dev)
         seed = 4242
         Lk, _ = vs.sample_primal_kernel(cfg, sc, o, d, seed)
         acc_k, res_k, st_k = vs.adjoint_walk_kernel(cfg, sc, o, d, seed, dL, Lk)
+        acc_o, res_o, st_o = vs.adjoint_walk_kernel(cfg, off, o, d, seed, dL, Lk)
         torch.cuda.synchronize()
-        k_ms = cuda_ms(lambda: vs.adjoint_walk_kernel(cfg, sc, o, d, seed, dL, Lk), 3)
-        t0 = time.perf_counter()
-        Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed)
-        acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt)
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
-        agree = {"dim": equal_frac(st_k["dim"], st_t["dim"]),
-                 "alt_dim": equal_frac(st_k["alt_dim"], st_t["alt_dim"]),
-                 "reservoir_depth": equal_frac(res_k.depth, res_t.depth)}
-        rel = {"sigma": rel_l1(acc_k.sigma, acc_t.sigma),
-               "albedo": rel_l1(acc_k.albedo, acc_t.albedo)}
+        k_ms, off_ms = on_off_ms(lambda: vs.adjoint_walk_kernel(cfg, sc, o, d, seed, dL, Lk),
+                                 lambda: vs.adjoint_walk_kernel(cfg, off, o, d, seed, dL, Lk), 1)
+        on_off = {k: equal_frac(st_k[k], st_o[k]) for k in ("dim", "alt_dim", "steps")}
+        on_off["reservoir_depth"] = equal_frac(res_k.depth, res_o.depth)
+        on_off_rel = {"sigma": rel_l1(acc_k.sigma, acc_o.sigma),
+                      "albedo": rel_l1(acc_k.albedo, acc_o.albedo)}
         rec = {"phase": "adjoint", "scene": name, "integrator": integ, **kw, "rays": n,
-               "agreement": agree, "need": need, "rel_l1": rel,
-               "max_abs_err": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
-                                  float((acc_k.albedo - acc_t.albedo).abs().max())),
-               "grad_abs_sum": float(acc_t.sigma.abs().sum()),
-               "kernel_ms": k_ms, "plain_ms": p_ms, "events": int(st_k["steps"].sum()),
-               "card": card}
+               "cls_on_off_agreement": on_off, "cls_on_off_rel_l1": on_off_rel,
+               "cls": cls_counts(st_k["cls"]), "kernel_ms": k_ms, "kernel_ms_cls_off": off_ms,
+               "events": int(st_k["steps"].sum()), "card": card}
+        bad = min(on_off.values()) < 1.0 or max(on_off_rel.values()) > 1e-4
+        if need is not None:
+            t0 = time.perf_counter()
+            Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed)
+            acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt)
+            torch.cuda.synchronize()
+            agree = {"dim": equal_frac(st_k["dim"], st_t["dim"]),
+                     "alt_dim": equal_frac(st_k["alt_dim"], st_t["alt_dim"]),
+                     "reservoir_depth": equal_frac(res_k.depth, res_t.depth)}
+            rel = {"sigma": rel_l1(acc_k.sigma, acc_t.sigma),
+                   "albedo": rel_l1(acc_k.albedo, acc_t.albedo)}
+            rec.update({"agreement": agree, "need": need, "rel_l1": rel,
+                        "max_abs_err": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
+                                           float((acc_k.albedo - acc_t.albedo).abs().max())),
+                        "grad_abs_sum": float(acc_t.sigma.abs().sum()),
+                        "plain_ms": (time.perf_counter() - t0) * 1e3})
+            bad = bad or min(agree.values()) < need or max(rel.values()) > 1e-2 \
+                or not rec["grad_abs_sum"] > 0
         emit(rec)
-        if min(agree.values()) < need or max(rel.values()) > 1e-2 or not rec["grad_abs_sum"] > 0:
-            raise RuntimeError(f"adjoint {name} {integ} {kw}: kernel disagrees with the twin")
+        if bad:
+            raise RuntimeError(f"adjoint {name} {integ} {kw}: the kernel disagrees with "
+                               "itself without K6 or with the twin")
 
 
 def check_step(card, vs, tag, step):
@@ -381,7 +452,8 @@ def check_step(card, vs, tag, step):
     the step gave them: the adjoint call's per-lane primary draws, alt
     draws and reservoir depth on its last SLICE rays (the twin keyed by
     their ray ids), and ``drt_backward_kernel`` against
-    ``_drt_backward_flat`` on all of the step's reservoirs."""
+    ``_drt_backward_flat`` on all of the step's reservoirs (the twin's
+    global-counter sampler admits no subset)."""
     import torch
     from uivr_tpu_torch.integrators import volpath_flat
     from uivr_tpu_torch.scene.gradients import init_accum
@@ -404,10 +476,29 @@ def check_step(card, vs, tag, step):
                  "reservoir_depth": equal_frac(a["res"].depth[sl], res_t.depth)}
     adj_err = max(float((a["res"].wsum[sl] - res_t.wsum).abs().max()),
                   float((a["res"].cur_w[sl] - res_t.cur_w).abs().max()))
+    g = step["grads"]
+    adj_rec = {"phase": "adjoint_step", "step": tag, "adjoint_rays": n,
+               "adjoint_slice": [n - SLICE, n], "adjoint_agreement": adj_agree,
+               "need": 0.90, "adjoint_max_abs_err": adj_err, "adjoint_plain_ms": adj_plain_ms,
+               "adjoint_primal_plain_ms": (t1 - t0) * 1e3,
+               "adjoint_cls": cls_counts(a["stats"]["cls"]),
+               "grads_finite": bool(torch.isfinite(g.sigma_t).all()
+                                    and torch.isfinite(g.albedo).all()),
+               "grads_abs_sum": [float(g.sigma_t.abs().sum()), float(g.albedo.abs().sum())],
+               "card": card}
+    emit(adj_rec)
+    if min(adj_agree.values()) < 0.90:
+        raise RuntimeError(f"adjoint_step {tag}: volpath_adjoint disagrees with the twin")
+    if not (adj_rec["grads_finite"] and min(adj_rec["grads_abs_sum"]) > 0):
+        raise RuntimeError(f"adjoint_step {tag}: the step's gradients are not finite and nonzero")
 
     m = sc.medium
     acc_k, k = vs.drt_backward_kernel(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
                                       init_accum(m, need_emission=False), return_stats=True)
+    rec = {"phase": "drt", "step": tag, "reservoirs": n,
+           "vertices": int((dr["res"].active & k["found"]).sum()),
+           "K_A": k["k_a"], "K_B": k["k_b"], "recursive_cls": cls_counts(k["rec_stats"]["cls"]),
+           "card": card}
     acc_t = init_accum(m, need_emission=False)
     with Laps(volpath_flat, ("drt_distance", "_nee_primal", "sample_primal")) as laps:
         torch.cuda.synchronize()
@@ -429,53 +520,44 @@ def check_step(card, vs, tag, step):
     agree["path_state_active"] = equal_frac(k["path_state"].active, p["path_state"].active)
     agree["recursive_L"] = lane_agreement(k["rec_L"][both], p["rec_L"][both])
     rel = {"sigma": rel_l1(acc_k.sigma, acc_t.sigma), "albedo": rel_l1(acc_k.albedo, acc_t.albedo)}
-    g = step["grads"]
-    adj_rec = {"phase": "adjoint_step", "step": tag, "adjoint_rays": n,
-               "adjoint_slice": [n - SLICE, n], "adjoint_agreement": adj_agree,
-               "need": 0.90, "adjoint_max_abs_err": adj_err, "adjoint_plain_ms": adj_plain_ms,
-               "grads_finite": bool(torch.isfinite(g.sigma_t).all()
-                                    and torch.isfinite(g.albedo).all()),
-               "grads_abs_sum": [float(g.sigma_t.abs().sum()), float(g.albedo.abs().sum())],
-               "card": card}
-    rec = {"phase": "drt", "step": tag, "reservoirs": n,
-           "vertices": int((dr["res"].active & k["found"]).sum()),
-           "K_A": k["k_a"], "K_B": k["k_b"], "K_A_plain": int(p["k_a"]), "K_B_plain": int(p["k_b"]),
-           "drt_agreement": agree, "need": 0.90, "drt_rel_l1": rel,
-           "drt_max_abs_err": {
-               "volpath_drt_walk": float((k["wsum"] - p["wsum"]).abs().max()),
-               "volpath_drt_nee": float((k["nee"][both] - p["nee"][both]).abs().max()),
-               "volpath_drt_phase": float((k["path_state"].d_w[both]
-                                           - p["path_state"].d_w[both]).abs().max()),
-               "volpath_primal_state": float((k["rec_L"][both] - p["rec_L"][both]).abs().max()),
-               "volpath_drt_scatter": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
-                                          float((acc_k.albedo - acc_t.albedo).abs().max()))},
-           "drt_plain_ms": drt_plain_ms, "drt_plain_total_ms": (t1 - t0) * 1e3,
-           "card": card}
-    emit(adj_rec)
+    rec.update({
+        "K_A_plain": int(p["k_a"]), "K_B_plain": int(p["k_b"]),
+        "drt_agreement": agree, "need": 0.90, "drt_rel_l1": rel,
+        "drt_max_abs_err": {
+            "volpath_drt_walk": float((k["wsum"] - p["wsum"]).abs().max()),
+            "volpath_drt_nee": float((k["nee"][both] - p["nee"][both]).abs().max()),
+            "volpath_drt_phase": float((k["path_state"].d_w[both]
+                                        - p["path_state"].d_w[both]).abs().max()),
+            "volpath_primal_state": float((k["rec_L"][both] - p["rec_L"][both]).abs().max()),
+            "volpath_drt_scatter": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
+                                       float((acc_k.albedo - acc_t.albedo).abs().max()))},
+        "drt_plain_ms": drt_plain_ms, "drt_plain_total_ms": (t1 - t0) * 1e3})
     emit(rec)
-    if min(adj_agree.values()) < 0.90:
-        raise RuntimeError(f"adjoint_step {tag}: volpath_adjoint disagrees with the twin")
-    if not (adj_rec["grads_finite"] and min(adj_rec["grads_abs_sum"]) > 0):
-        raise RuntimeError(f"adjoint_step {tag}: the step's gradients are not finite and nonzero")
     if min(agree.values()) < 0.90 or [k["k_a"], k["k_b"]] != [int(p["k_a"]), int(p["k_b"])] \
             or max(rel.values()) > 1e-2 or not float(acc_t.sigma.abs().sum()) > 0:
         raise RuntimeError(f"drt {tag}: the DRT kernels disagree with the twin")
     return dict(adj_rec, **rec, drt_stats=k)
 
 
-def phase_train(card, dev, vs, janga, out_dir):
-    """run_optimization at full width (3 iterations of volpathsimple-drt on
-    janga-smoke, 128^3 grids trained), then one step of it from the
-    ground-truth grids; both recorded by StepRecorder."""
+def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoints=True):
+    """run_optimization of volpathsimple-drt at the preset's full width
+    (batch 32,768 pixels, 16 adjoint spp, primal factor 64), ``n_iter``
+    iterations from the constant start with the grids at full resolution
+    (no upsampling), then one step of it from the ground-truth grids; both
+    recorded by StepRecorder.  The counters are set to 0 just before the
+    main run: every training kernel and K6 must launch, no twin may run,
+    the parameters must change (and with ``checkpoints`` the .vol files
+    read back)."""
     import torch
     from uivr_tpu_torch.config import get_int_config
     from uivr_tpu_torch.core import vol_io
     from uivr_tpu_torch.integrators import volpath_flat
     from uivr_tpu_torch.opt import OptimizationConfig, loop, render_references
     from uivr_tpu_torch.render import RenderSettings
-    preset, b, _ = janga
+    preset, b, _ = scene
+    name = preset.name
     cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
-    ref_spp = 64
+    out_dir = out_dir / name
     t0 = time.perf_counter()
     refs = render_references(b, RenderSettings(integrator=cfg, medium=b.medium_cfg,
                                                film_size=b.film_size, spp=ref_spp,
@@ -484,9 +566,11 @@ def phase_train(card, dev, vs, janga, out_dir):
     ref_s = time.perf_counter() - t0
     width = dict(spp=16, lr=5e-3, primal_spp_factor=64, batch_size=32768, upsample=None,
                  preview_spp=16)
-    opt = OptimizationConfig(name="janga-smoke/volpathsimple-drt", n_iter=3,
-                             preview_stride=0, checkpoint_stride=2, render_initial=False,
-                             **width)
+    width.update(opt_kw or {})
+    opt = OptimizationConfig(name=f"{name}/volpathsimple-drt", n_iter=n_iter,
+                             preview_stride=0, checkpoint_stride=2 if checkpoints else 0,
+                             checkpoint_initial=checkpoints, checkpoint_final=checkpoints,
+                             render_initial=False, **width)
     for k in vs.LAUNCHES:
         vs.LAUNCHES[k] = 0
     for k in volpath_flat.CALLS:
@@ -500,7 +584,7 @@ def phase_train(card, dev, vs, janga, out_dir):
     launches = dict(vs.LAUNCHES)
     plain_calls = dict(volpath_flat.CALLS)
     # one step from the ground-truth grids: walks as long as late in a run
-    one = OptimizationConfig(name="janga-smoke/truth", n_iter=1, preview_stride=0,
+    one = OptimizationConfig(name=f"{name}/truth", n_iter=1, preview_stride=0,
                              checkpoint_stride=0, checkpoint_initial=False,
                              checkpoint_final=False, render_initial=False,
                              render_final=False, **width)
@@ -508,29 +592,94 @@ def phase_train(card, dev, vs, janga, out_dir):
         loop.run_optimization(str(out_dir / "truth"), one, b, cfg, ref_images=refs,
                               start_params=b.params, resume=False, verbose=False)
     vols = {}
-    for tag, grids in (("initial", b.start_from), ("final", final)):
-        for key in ("sigma_t", "albedo"):
-            data, _ = vol_io.read_vol(str(out_dir / "train" / "params" / f"{tag}-medium1_{key}.vol"))
-            vols[f"{tag}_{key}"] = bool(np.array_equal(data, getattr(grids, key).cpu().numpy()))
+    if checkpoints:
+        for tag, grids in (("initial", b.start_from), ("final", final)):
+            for key in ("sigma_t", "albedo"):
+                data, _ = vol_io.read_vol(str(out_dir / "train" / "params"
+                                              / f"{tag}-medium1_{key}.vol"))
+                vols[f"{tag}_{key}"] = bool(np.array_equal(data, getattr(grids, key).cpu().numpy()))
     changed = {k: not torch.equal(getattr(final, k), getattr(b.start_from, k))
                for k in ("sigma_t", "albedo")}
     steps = [{"seconds": s["seconds"], "loss": s["loss"], "parts_ms": step_parts(s)}
              for s in main.steps + truth.steps]
-    rec = {"phase": "train", "scene": "janga-smoke", "integrator": "volpathsimple-drt",
-           "batch": 32768, "spp_primal": 1024, "spp_grad": 16, "grid": list(b.params.sigma_t.shape),
+    rec = {"phase": "train", "scene": name, "integrator": "volpathsimple-drt",
+           "batch": 32768, "spp_primal": 1024, "spp_grad": 16,
+           "grid": list(b.params.sigma_t.shape), "sensors": b.cameras.n_sensors,
+           "lr": opt.lr, "lr_factors": opt.lr_factors,
            "ref_spp": ref_spp, "references_s": ref_s, "run_s": run_s,
            "iterations": steps[:-1], "truth_step": steps[-1],
+           "truth_adjoint_cls": cls_counts(truth.steps[0]["adjoint"]["stats"]["cls"]),
            "launches": launches, "plain_twin_calls": plain_calls,
            "checkpoints_read_back": vols, "params_changed": changed, "card": card}
     emit(rec)
-    missing = [k for k in TRAIN_KERNELS if not launches[k] > 0]
+    missing = [k for k in TRAIN_KERNELS + ("subcell_classification",) if not launches[k] > 0]
     if missing or any(plain_calls.values()):
-        raise RuntimeError(f"training did not run through the kernels: missing {missing}, "
-                           f"plain twin calls {plain_calls}")
-    if not (all(changed.values()) and all(vols.values()) and len(main.steps) == 3
+        raise RuntimeError(f"{name}: training did not run through the kernels: missing "
+                           f"{missing}, plain twin calls {plain_calls}")
+    if not (all(changed.values()) and all(vols.values()) and len(main.steps) == n_iter
             and all(math.isfinite(s_["loss"]) for s_ in steps)):
-        raise RuntimeError("training step checks failed")
+        raise RuntimeError(f"{name}: training step checks failed")
     return rec, main.steps[0], truth.steps[0]
+
+
+def phase_fd(card, vs, out_dir):
+    """``python -m uivr_tpu_torch.cli.fd`` on tiny-cube (spp 1024, res 16,
+    all three grids) under volpathsimple-drt and volpathsimple-basic, with
+    K6 on and off (``--cls-cells 0``): each run launches the kernels and no
+    twin; off writes the same FD values and adjoint gradients."""
+    import torch
+    from uivr_tpu_torch.cli import fd as cli_fd
+    from uivr_tpu_torch.integrators import volpath_flat
+    keys = ("sigma_t", "albedo", "emission")
+    out = {}
+    for integ in ("volpathsimple-drt", "volpathsimple-basic"):
+        runs = {}
+        for tag, extra in (("on", []), ("off", ["--cls-cells", "0"])):
+            d = out_dir / "fd" / integ / tag
+            for k in vs.LAUNCHES:
+                vs.LAUNCHES[k] = 0
+            for k in volpath_flat.CALLS:
+                volpath_flat.CALLS[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = cli_fd.main(["--scene", "tiny-cube", "--integrator", integ,
+                                   "--spp", "1024", "--res", "16", "--out", str(d)] + extra)
+            torch.cuda.synchronize()
+            runs[tag] = {"seconds": time.perf_counter() - t0, "summary": summary,
+                         "launches": {k: v for k, v in vs.LAUNCHES.items() if v},
+                         "plain_twin_calls": dict(volpath_flat.CALLS),
+                         "fd": {k: np.load(d / f"fd_{k}.npy") for k in keys},
+                         "adjoint": {k: np.load(d / f"adjoint_{k}.npy") for k in keys}}
+        on, off = runs["on"], runs["off"]
+
+        def rel(a, b):
+            return float(np.abs(a - b).sum() / max(np.abs(b).sum(), 1e-30))
+        rec = {"phase": "fd", "scene": "tiny-cube", "integrator": integ, "spp": 1024,
+               "res": 16, "keys": list(keys),
+               "summary": on["summary"], "summary_cls_off": off["summary"],
+               "fd_equal_cls_off": all(np.array_equal(on["fd"][k], off["fd"][k]) for k in keys),
+               "fd_rel_l1_cls_off": {k: rel(on["fd"][k], off["fd"][k]) for k in keys},
+               "adjoint_rel_l1_cls_off": {k: rel(on["adjoint"][k], off["adjoint"][k])
+                                          for k in keys},
+               "seconds": {t: r["seconds"] for t, r in runs.items()},
+               "launches": {t: r["launches"] for t, r in runs.items()},
+               "plain_twin_calls": {t: r["plain_twin_calls"] for t, r in runs.items()},
+               "card": card}
+        emit(rec)
+        need = ["volpath_primal", "volpath_adjoint"]
+        if integ == "volpathsimple-drt":
+            need += list(ADJ_KERNELS)
+        ok = all(r["launches"].get(k, 0) > 0 for r in runs.values() for k in need)
+        ok = ok and on["launches"].get("subcell_classification", 0) > 0 \
+            and "subcell_classification" not in off["launches"]
+        ok = ok and not any(v for r in runs.values() for v in r["plain_twin_calls"].values())
+        ok = ok and max(rec["fd_rel_l1_cls_off"].values()) <= 1e-4 \
+            and max(rec["adjoint_rel_l1_cls_off"].values()) <= 1e-4
+        ok = ok and all(math.isfinite(v) for s_ in on["summary"].values() for v in s_.values())
+        if not ok:
+            raise RuntimeError(f"fd {integ}: the FD entry point failed its checks")
+        out[integ] = rec
+    return out
 
 
 def phase_cli(card, out_dir):
@@ -572,8 +721,9 @@ def adjoint_bound(n, stats, cfg, scene):
     move (tables read once; o, d, L, dL in; reservoir and counters out, 137 B
     a ray; the sigma and albedo gradient grids written once) against the
     flops of its events.  ``gather_ms`` counts instead the bytes its events
-    fetch: 132 B per event, 128 B of atomics per real collision, 32 B per
-    transmittance sample and per replay collision, 120 B per ray."""
+    fetch: 132 B per event (8 B for an event K6 classified), 128 B of atomics
+    per real collision, 32 B per transmittance sample and per replay
+    collision, 120 B per ray."""
     events = int(stats["steps"].sum())
     real = int(stats["events"][:, 0].sum())
     replay = int(stats["events"][:, 1].sum())
@@ -586,7 +736,8 @@ def adjoint_bound(n, stats, cfg, scene):
     grads = scene.medium.params.sigma_t[..., 0].numel() * 16
     req = bound(table_bytes(scene) + grads + 137 * n,
                 FLOP_PER_STEP * events + FLOP_PER_EXTRA_DRAW * extra_draws)
-    gather_ms, _ = bound(132 * events + 128 * real + 32 * (samples + replay) + 120 * n, 0)
+    gather_ms, _ = bound(event_fetch_bytes(events, cls_counts(stats["cls"])) + 128 * real
+                         + 32 * (samples + replay) + 120 * n, 0)
     return req, gather_ms, {"events": events, "real_collisions": real,
                             "replay_collisions": replay, "trans_samples": samples}
 
@@ -643,7 +794,8 @@ def training_kernels(train, truth, check):
     rec_extra = max(0, int(k["rec_stats"]["dim"].sum()) - 2 * rec_steps)
     s_bound, s_by = bound(table_bytes(scene) + n * (49 + 13),
                           FLOP_PER_STEP * rec_steps + FLOP_PER_EXTRA_DRAW * rec_extra)
-    s_gather, _ = bound(132 * rec_steps + 28 * rec_extra / 5 + 49 * n, 0)
+    s_gather, _ = bound(event_fetch_bytes(rec_steps, cls_counts(k["rec_stats"]["cls"]))
+                        + 28 * rec_extra / 5 + 49 * n, 0)
     d_req, d_gather, d_counts = drt_bounds(n, k, truth["drt"]["res"], scene)
     src = "uivr_tpu_torch/ops/csrc/"
     shape = "janga-smoke step from the ground truth"
@@ -682,6 +834,28 @@ def training_kernels(train, truth, check):
                     "agreement": min(check["drt_agreement"][f] for f in ("t_sel", "wsum", "found")),
                     "shape": f"{n} reservoirs, {shape}", **d_counts})
     return out
+
+
+def walking_on_off(vs, step, check):
+    """CUDA-event times (ms) of the adjoint and the recursive primal with K6
+    on and off, on a recorded training step's own inputs."""
+    from uivr_tpu_torch.core.rng import sample_tea_32
+    a = step["adjoint"]
+    cfg, sc = a["cfg"], a["scene"]
+    off = no_cls(sc)
+    args = (a["o"], a["d"], a["seed"], a["dL"], a["L"])
+    adj = on_off_ms(lambda: vs.adjoint_walk_kernel(cfg, sc, *args),
+                    lambda: vs.adjoint_walk_kernel(cfg, off, *args), 1)
+    ps = check["drt_stats"]["path_state"]
+    rec_seed, _ = sample_tea_32(int(step["drt"]["seed"]), 0x7177)
+    rec = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, None, None, rec_seed, path_state=ps),
+                    lambda: vs.sample_primal_kernel(cfg, off, None, None, rec_seed, path_state=ps),
+                    1)
+    n = a["o"].shape[0]
+    return {"volpath_adjoint": {"ms_on": adj[0], "ms_off": adj[1],
+                                "shape": f"{n} adjoint rays, truth step"},
+            "volpath_primal_state": {"ms_on": rec[0], "ms_off": rec[1],
+                                     "shape": f"{n} path states, truth step"}}
 
 
 def main():
@@ -755,6 +929,19 @@ def main():
                    b.emitter, b.cameras)
         return preset, b, sc
 
+    def sparse_variant(scene):
+        """janga-smoke's density kept only in the central block [40:88]^3
+        (x4), under one global majorant: empty subcells inside the
+        majorant's cell, where SHADOW candidates classify (the sparse
+        fixture of tests/pallas_common.py, at 128^3)."""
+        preset, b, _ = scene
+        mask = torch.zeros_like(b.params.sigma_t)
+        mask[40:88, 40:88, 40:88] = 1.0
+        params = b.params._replace(sigma_t=(b.params.sigma_t * mask * 4.0).contiguous())
+        mcfg = dataclasses.replace(b.medium_cfg, majorant_factor=1)
+        sc = Scene(finalize_medium(params, mcfg, b.to_world), b.emitter, b.cameras)
+        return preset, dataclasses.replace(b, params=params, medium_cfg=mcfg), sc
+
     def random_pixel_rays(b, n):
         W, H = b.film_size
         pix = rs.randint(0, [W, H], size=(n, 2)).astype(np.float32)
@@ -779,95 +966,139 @@ def main():
 
     n_cmp = 1 << 16
     seed = 42
+    t_scenes = time.perf_counter()
     janga = scene_of("janga-smoke")
+    dust = scene_of("dust-devil")
     cube = scene_of("tiny-cube")
-    runs = [("janga-smoke", janga, True, 0.90), ("tiny-cube", cube, True, 0.95),
-            ("tiny-cube", cube, False, 0.95)]
+    sparse = sparse_variant(janga)
+    emit({"phase": "scenes", "seconds": time.perf_counter() - t_scenes,
+          "subcells": {name: {"dims": list(sc_.medium.sub.shape),
+                              "empty": int((sc_.medium.sub == 0).sum()),
+                              "majorant_cells": list(sc_.medium.majorant_grid.shape)}
+                       for name, (_, _, sc_) in (("janga-smoke", janga), ("dust-devil", dust),
+                                                 ("tiny-cube", cube),
+                                                 ("janga-smoke-sparse", sparse))}})
+    runs = [("janga-smoke", janga, True, 0.90), ("dust-devil", dust, True, 0.90),
+            ("tiny-cube", cube, True, 0.95), ("tiny-cube", cube, False, 0.95),
+            ("janga-smoke-sparse", sparse, True, None)]
     for name, (preset, b, sc), nee, need in runs:
         cfg = dataclasses.replace(get_int_config("volpathsimple-basic").create(
             max_depth=preset.max_depth), use_nee=nee)
+        off = no_cls(sc)
         o, d = random_pixel_rays(b, n_cmp)
         Lk, ek, sk = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True)
+        Lo, eo, so = vs.sample_primal_kernel(cfg, off, o, d, seed, return_stats=True)
         torch.cuda.synchronize()
-        k_ms = cuda_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed), 5)
-        t0 = time.perf_counter()
-        Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True)
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
-        agree = lane_agreement(Lk, Lp)
-        mk, mp = Lk.mean(0).tolist(), Lp.mean(0).tolist()
-        means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mk, mp))
+        same = {"radiance_bits": torch.equal(Lk, Lo), "escaped": torch.equal(ek, eo),
+                "dim": torch.equal(sk["dim"], so["dim"]),
+                "steps": torch.equal(sk["steps"], so["steps"])}
+        k_ms, off_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed),
+                                 lambda: vs.sample_primal_kernel(cfg, off, o, d, seed), 3)
+        cls = cls_counts(sk["cls"])
         rec = {"phase": "primal", "scene": name, "nee": nee, "rays": n_cmp,
-               "agreement": agree, "need": need, "same_draws": (sk["dim"] == sp["dim"]).float().mean().item(),
-               "escaped_equal": (ek == ep).float().mean().item(),
-               "mean_kernel": mk, "mean_plain": mp,
-               "max_abs_err": (Lk - Lp).abs().max().item(),
-               "kernel_ms": k_ms, "plain_ms": p_ms,
-               "steps": int(sk["steps"].sum()), "max_steps_lane": int(sk["steps"].max()),
-               "card": card}
-        if name == "janga-smoke":
-            rec["agreement_fmad_true"] = lane_agreement(run_fmad(cfg, sc, o, d, seed), Lp)
+               "cls_on_equals_off": same, "cls": cls, "kernel_ms": k_ms,
+               "kernel_ms_cls_off": off_ms, "steps": int(sk["steps"].sum()),
+               "max_steps_lane": int(sk["steps"].max()), "card": card}
+        bad = not all(same.values())
+        if need is not None:
+            t0 = time.perf_counter()
+            Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True)
+            torch.cuda.synchronize()
+            p_ms = (time.perf_counter() - t0) * 1e3
+            agree = lane_agreement(Lk, Lp)
+            mk, mp = Lk.mean(0).tolist(), Lp.mean(0).tolist()
+            means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mk, mp))
+            rec.update({"agreement": agree, "need": need,
+                        "same_draws": (sk["dim"] == sp["dim"]).float().mean().item(),
+                        "escaped_equal": (ek == ep).float().mean().item(),
+                        "mean_kernel": mk, "mean_plain": mp,
+                        "max_abs_err": (Lk - Lp).abs().max().item(), "plain_ms": p_ms})
+            if name == "janga-smoke":
+                rec["agreement_fmad_true"] = lane_agreement(run_fmad(cfg, sc, o, d, seed), Lp)
+            bad = bad or agree < need or not means_ok
         emit(rec)
-        if agree < need or not means_ok:
-            raise RuntimeError(f"{name} (nee={nee}): kernel disagrees with the plain twin")
+        if bad:
+            raise RuntimeError(f"{name} (nee={nee}): the kernel disagrees with itself "
+                               "without K6 or with the plain twin")
+        if name == "dust-devil" and not cls["cls_main_nulls"] > 0:
+            raise RuntimeError("dust-devil: K6 classified no MAIN null")
+        if name == "janga-smoke-sparse" and not (cls["cls_main_nulls"] > 0
+                                                 and cls["cls_shadow"] > 0):
+            raise RuntimeError(f"{name}: a K6 branch never fired: {cls}")
 
     # ---------------------------------------------------------- 4. render
     out_dir = HERE / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
-    exr = out_dir / "janga-smoke-s0.exr"
-    for k in vs.LAUNCHES:
-        vs.LAUNCHES[k] = 0
-    volpath_flat.CALLS["volpath_primal"] = 0
-    img, dt = cli_render.main(["--scene", "janga-smoke", "--sensor", "0",
-                               "--spp", "64", "--out", str(exr)])
-    launches = dict(vs.LAUNCHES)
-    plain_calls = volpath_flat.CALLS["volpath_primal"]
-    back = exr_io.read_exr(str(exr))
-    W, H = janga[1].film_size
-    rays = W * H * 64
-    emit({"phase": "render", "scene": "janga-smoke", "sensor": 0, "spp": 64,
-          "rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6,
-          "image_mean": float(img.mean()), "launches": launches,
-          "plain_twin_calls": plain_calls, "exr_shape": list(back.shape),
-          "exr_finite": bool(np.isfinite(back).all()),
-          "exr_matches": bool(np.array_equal(back, img)), "card": card})
-    if not (launches["volpath_primal"] > 0 and launches["tea"] > 0 and plain_calls == 0):
-        raise RuntimeError(f"the render did not run through the kernels: {launches}, "
-                           f"plain twin calls {plain_calls}")
-    if back.shape != (H, W, 3) or not np.isfinite(back).all() or not np.array_equal(back, img):
-        raise RuntimeError("the rendered EXR is malformed")
+    images, render_launches = {}, {}
+    for name, (preset, b, sc) in (("janga-smoke", janga), ("dust-devil", dust)):
+        exr = out_dir / f"{name}-s0.exr"
+        for k in vs.LAUNCHES:
+            vs.LAUNCHES[k] = 0
+        volpath_flat.CALLS["volpath_primal"] = 0
+        img, dt = cli_render.main(["--scene", name, "--sensor", "0",
+                                   "--spp", "64", "--out", str(exr)])
+        launches = dict(vs.LAUNCHES)
+        plain_calls = volpath_flat.CALLS["volpath_primal"]
+        back = exr_io.read_exr(str(exr))
+        W, H = b.film_size
+        rays = W * H * 64
+        emit({"phase": "render", "scene": name, "sensor": 0, "spp": 64,
+              "rays": rays, "seconds": dt, "mrays_per_s": rays / dt / 1e6,
+              "image_mean": float(img.mean()), "launches": launches,
+              "plain_twin_calls": plain_calls, "exr_shape": list(back.shape),
+              "exr_finite": bool(np.isfinite(back).all()),
+              "exr_matches": bool(np.array_equal(back, img)), "card": card})
+        if not (launches["volpath_primal"] > 0 and launches["tea"] > 0
+                and launches["subcell_classification"] > 0 and plain_calls == 0):
+            raise RuntimeError(f"{name}: the render did not run through the kernels: "
+                               f"{launches}, plain twin calls {plain_calls}")
+        if back.shape != (H, W, 3) or not np.isfinite(back).all() \
+                or not np.array_equal(back, img):
+            raise RuntimeError(f"{name}: the rendered EXR is malformed")
+        images[name], render_launches[name] = img, launches
+    launches = render_launches["janga-smoke"]
 
     # ------------------------------------------------- 4b. where the time goes
-    preset, b, sc = janga
-    cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
-    st = batched.RenderSettings(integrator=cfg, medium=b.medium_cfg, film_size=b.film_size,
-                                spp=64, spp_grad=64)
-    repeats = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        again = batched.render_image(st, b.params, b.emitter, b.cameras, 0, seed=1234,
-                                     medium_to_world=b.to_world)
-        repeats.append(time.perf_counter() - t0)
-    parts = time_render_parts(st, b, seed=1234, spp=64)
-    emit({"phase": "breakdown", "scene": "janga-smoke", "render_s": repeats,
-          "same_image": bool(np.array_equal(again, img)), "parts_ms": parts,
-          "card": card})
-    if not np.array_equal(again, img):
-        raise RuntimeError("a repeated render differs from the first")
+    cfg = get_int_config("volpathsimple-drt").create(max_depth=janga[0].max_depth)
+    for name, (preset, b, sc) in (("janga-smoke", janga), ("dust-devil", dust)):
+        st = batched.RenderSettings(integrator=cfg, medium=b.medium_cfg,
+                                    film_size=b.film_size, spp=64, spp_grad=64)
+        st_off = dataclasses.replace(st, medium=dataclasses.replace(b.medium_cfg, cls_cells=0))
+        repeats = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = batched.render_image(st, b.params, b.emitter, b.cameras, 0, seed=1234,
+                                         medium_to_world=b.to_world)
+            repeats.append(time.perf_counter() - t0)
+        # K6 on and off in turns (on, off, off, on)
+        turns = [time_render_parts(s_, b, seed=1234, spp=64) for s_ in (st, st_off, st_off, st)]
+        emit({"phase": "breakdown", "scene": name, "render_s": repeats,
+              "same_image": bool(np.array_equal(again, images[name])),
+              "parts_ms": turns[0], "parts_ms_cls_off": turns[1],
+              "kernel_ms_cls_on_off_turns": [t["kernel"] for t in turns], "card": card})
+        if not np.array_equal(again, images[name]):
+            raise RuntimeError(f"{name}: a repeated render differs from the first")
 
     # ---------------------------------------------------------- 5. kernels
-    spp, chunk_pix, seed0 = 64, (1 << 20) // 64, 1234
-    xs = torch.arange(chunk_pix, device=dev) % W
-    ys = torch.arange(chunk_pix, device=dev) // W
-    pix = torch.stack([xs, ys], dim=-1)
-    sidx = torch.zeros(chunk_pix, dtype=torch.int64, device=dev)
-    sub_seed, _ = rng.sample_tea_32(seed0, 22)
-    o, d = batched._expand_rays(b.cameras, sidx, pix, b.film_size, spp, sub_seed)
+    def render_chunk(b, spp=64, seed0=1234):
+        """The rays of a full-frame render's first chunk (2**20 rays)."""
+        W_ = b.film_size[0]
+        chunk_pix = (1 << 20) // spp
+        pix = torch.stack([torch.arange(chunk_pix, device=dev) % W_,
+                           torch.arange(chunk_pix, device=dev) // W_], dim=-1)
+        sidx = torch.zeros(chunk_pix, dtype=torch.int64, device=dev)
+        sub_seed, _ = rng.sample_tea_32(seed0, 22)
+        return batched._expand_rays(b.cameras, sidx, pix, b.film_size, spp, sub_seed)
+
+    preset, b, sc = janga
+    seed0 = 1234
+    o, d = render_chunk(b)
     n = o.shape[0]
     Lk, ek, sk = vs.sample_primal_kernel(cfg, sc, o, d, seed0, return_stats=True)
     torch.cuda.synchronize()
-    k_ms = cuda_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed0), 5)
+    k_ms, k_off_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed0),
+                               lambda: vs.sample_primal_kernel(cfg, no_cls(sc), o, d, seed0), 3)
     t0 = time.perf_counter()
     Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed0, return_stats=True)
     torch.cuda.synchronize()
@@ -877,12 +1108,22 @@ def main():
     m = sc.medium
     em = sc.emitter
     in_bytes = (o.numel() + d.numel()) * 4 + m.grid.numel() * 4 + m.majorant_grid.numel() * 4 \
+        + m.sub.numel() * 4 \
         + sum(t.numel() * 4 for t in (em.data, em.alias_tab, em.row_pmf, em.cond_pmf))
     out_bytes = n * (12 + 1)
     k_bound, k_by = bound(in_bytes + out_bytes,
                           FLOP_PER_STEP * steps + FLOP_PER_EXTRA_DRAW * extra_draws)
     scatters = extra_draws / 5
-    gather_ms, _ = bound(132 * steps + 28 * scatters + 36 * n, 0)
+    chunk_cls = cls_counts(sk["cls"])
+    gather_ms, _ = bound(event_fetch_bytes(steps, chunk_cls) + 28 * scatters + 36 * n, 0)
+    gather_off_ms, _ = bound(event_fetch_bytes(steps, None) + 28 * scatters + 36 * n, 0)
+    # dust-devil's first render chunk, K6 on and off
+    dust_o, dust_d = render_chunk(dust[1])
+    _, _, dust_sk = vs.sample_primal_kernel(cfg, dust[2], dust_o, dust_d, seed0,
+                                            return_stats=True)
+    dust_ms, dust_off_ms = on_off_ms(
+        lambda: vs.sample_primal_kernel(cfg, dust[2], dust_o, dust_d, seed0),
+        lambda: vs.sample_primal_kernel(cfg, no_cls(dust[2]), dust_o, dust_d, seed0), 2)
 
     tea_rounds = 8   # the wavefront sampler's vector hash of the ray generation
     t0_, t1_ = v0[:n], v1[:n]
@@ -918,16 +1159,44 @@ def main():
         raise RuntimeError("main-path chunk: kernel disagrees with the plain twin")
 
     # ---------------------------------------------------------- 6-9. training
-    phase_adjoint(card, dev, vs, janga, cube, random_pixel_rays)
-    train, start, truth = phase_train(card, dev, vs, janga, out_dir)
+    phase_adjoint(card, dev, vs, janga, dust, cube, random_pixel_rays)
+    train, start, truth = phase_train(card, vs, janga, out_dir, 3, 64)
     check_step(card, vs, "start", start)
     check = check_step(card, vs, "truth", truth)
+    dust_train, _, dust_truth = phase_train(
+        card, vs, dust, out_dir, 2, 16, {"lr": 1e-4, "lr_factors": {"albedo": 100.0}},
+        checkpoints=False)
+    dust_check = check_step(card, vs, "dust-devil truth", dust_truth)
     phase_cli(card, out_dir)
+    phase_fd(card, vs, out_dir)
     for k in kernels:
         k["launches_per_train_step"] = train["launches"].get(k["name"], 0) / 3
     kernels += training_kernels(train, truth, check)
 
     # ---------------------------------------------------------- 10. kernels
+    walking = {"janga-smoke": {"volpath_primal": {"ms_on": k_ms, "ms_off": k_off_ms,
+                                                  "shape": f"{n} rays, render chunk"},
+                               **walking_on_off(vs, truth, check)},
+               "dust-devil": {"volpath_primal": {"ms_on": dust_ms, "ms_off": dust_off_ms,
+                                                 "shape": f"{dust_o.shape[0]} rays, render chunk"},
+                              **walking_on_off(vs, dust_truth, dust_check)}}
+    counts = {"janga-smoke": {"volpath_primal": chunk_cls,
+                              "volpath_adjoint": cls_counts(truth["adjoint"]["stats"]["cls"]),
+                              "volpath_primal_state": check["recursive_cls"]},
+              "dust-devil": {"volpath_primal": cls_counts(dust_sk["cls"]),
+                             "volpath_adjoint": cls_counts(dust_truth["adjoint"]["stats"]["cls"]),
+                             "volpath_primal_state": dust_check["recursive_cls"]}}
+    kernels.append(
+        {"name": "subcell_classification", "route": "cuda",
+         "source": "uivr_tpu_torch/ops/csrc/volpath_lane.cuh",
+         "replaces": "uivr_tpu/ops/volpath_step.py:892",
+         "launches": train["launches"]["subcell_classification"],
+         "launches_per_train_step": train["launches"]["subcell_classification"] / 3,
+         "max_abs_err": kernels[1]["max_abs_err"], "ms": k_ms, "ms_cls_off": k_off_ms,
+         "plain_ms": p_ms, "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
+         "gather_bound_ms": gather_ms, "gather_bound_ms_cls_off": gather_off_ms,
+         "shape": f"volpath_primal with K6, {n} rays, janga-smoke sensor 0",
+         "walking_kernels_ms": walking, "counts": counts, "on_equals_off": True})
     emit({"kernels": kernels, "card": card})
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise RuntimeError("a kernel timing is not finite")

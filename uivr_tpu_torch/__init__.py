@@ -16,7 +16,8 @@ twins (``integrators/volpath_flat.py``).
   render/      full-frame rendering and the differentiable batch render op
   opt/         losses, Adam/SGD, schedules, checkpoints, the optimization loop
   utils/       image helpers
-  cli/         ``python -m uivr_tpu_torch.cli.render`` and ``.cli.reproduce``
+  validation/  the finite-difference gradient oracle
+  cli/         ``python -m uivr_tpu_torch.cli.render``, ``.cli.reproduce``, ``.cli.fd``
 """
 
 __version__ = "0.1.0"

@@ -149,6 +149,21 @@ def majorant_dims(shape: Tuple[int, ...], factor: int) -> Tuple[int, int, int]:
     return tuple(-(-max(int(n) - 1, 1) // factor) for n in shape[:3])
 
 
+def cls_dims(shape: Tuple[int, ...], budget: int = 8192) -> Tuple[int, int, int]:
+    """Dims of the subcell classification grid (the reference's
+    ``ops/volpath_step._cls_dims``): the ``majorant_dims`` of the smallest
+    power-of-two factor whose cell count fits ``budget``; (0, 0, 0) when
+    ``budget`` <= 0 (classification off)."""
+    if budget <= 0:
+        return (0, 0, 0)
+    f = 1
+    while True:
+        dims = majorant_dims(shape, f)
+        if int(np.prod(dims)) <= budget:
+            return tuple(int(x) for x in dims)
+        f *= 2
+
+
 def build_majorant_grid(sigma: torch.Tensor, factor: int) -> torch.Tensor:
     """Conservative coarse max-grid (Dc, Hc, Wc) over a (D,H,W,1) grid."""
     if factor < 1:

@@ -8,7 +8,9 @@
 // with adjoint=True (:673-800) and the host step _make_adj_step (:1603-1696),
 // the XLA row scatter-adds of the cotangents there (:1650-1690), and the
 // adjoint half of the persistent wavefront (sample_adjoint_persistent
-// :1811-2078: per-ray keying, reservoir collection).  One thread runs one
+// :1811-2078: per-ray keying, reservoir collection), and the subcell
+// classification (K6) the adjoint step runs on its MAIN and SHADOW events
+// (never on REPLAY, whose cotangent needs sigma at every collision).  One thread runs one
 // ray's MAIN / SHADOW / REPLAY walks to completion (at most 3 * max_steps
 // events), keyed by its ray index, and writes its DRT reservoir at the end:
 // there is no eviction machinery.

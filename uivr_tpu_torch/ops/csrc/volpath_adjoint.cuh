@@ -202,6 +202,7 @@ __host__ __device__ inline void adjoint_lane(const AdjParams& A, int64_t i) {
   A.res_active[i] = r.active ? 1 : 0;
   if (P.dims) P.dims[i] = s.rng.dim;
   if (P.steps) P.steps[i] = s.steps;
+  write_cls_counts(P, i, s);
   if (A.alt_dims) A.alt_dims[i] = h.alt.dim;
   if (A.events) {
     A.events[2 * i] = h.n_real;

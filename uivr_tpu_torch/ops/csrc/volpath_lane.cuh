@@ -9,7 +9,10 @@
 // k_cand=1), the XLA trilinear gather around it (_sigma_albedo_planes) and
 // the compaction rounds that run it: each thread owns one ray and loops over
 // tracking events until the path ends, so there are no state planes and no
-// chunk shuffles.
+// chunk shuffles.  In front of the sigma fetch sits PRE's subcell
+// classification (K6, :892-907): MAIN and SHADOW candidates that a
+// per-subcell sigma bound decides skip the fetch; the draws and decisions
+// are those of the fetch, so classification changes no path.
 //
 // The arithmetic repeats the plain twin operation for operation (see
 // uivr_tpu_torch/core/fmath.py): fmaf exactly where the twin fuses, float64
@@ -49,8 +52,11 @@ struct PrimalParams {
   const float* ps_d_w;       // (n, 3) world direction
   const float* ps_maxt;      // (n,)
   const float* ps_last_pdf;  // (n,)
+  // K6: per-subcell sigma upper bound (Ds, Hs, Ws), scaled, or null (off)
+  const float* sub;
+  int32_t* cls_counts;       // (n, kClsCounters) K6 counters, or null
   int64_t n;
-  int32_t D, H, W, Dc, Hc, Wc, env_H, env_W;
+  int32_t D, H, W, Dc, Hc, Wc, Ds, Hs, Ws, env_H, env_W;
   int32_t emitter;           // 0 constant, 1 envmap
   int32_t max_depth, rr_depth, max_steps, draw_rounds;
   int32_t use_nee, hide_emitters;
@@ -63,6 +69,7 @@ struct PrimalParams {
 };
 
 enum { DONE = 0, MAIN = 1, SHADOW = 2, REPLAY = 3 };
+constexpr int kClsCounters = 5;   // per-lane K6 counters (LaneState)
 
 constexpr float kInvFourPi = 0.07957747154594767f;   // 1 / (4 pi)
 constexpr float kPi = 3.141592653589793f;
@@ -354,6 +361,14 @@ __host__ __device__ inline float cell_step(const PrimalParams& P, V3 o, V3 wd,
   return P.majorant[(cz * P.Hc + cy) * P.Wc + cx];
 }
 
+// K6: the subcell sigma bound at local point p (floor(clip(p) * dims))
+__host__ __device__ inline float subcell_bound(const PrimalParams& P, V3 p) {
+  const int64_t x = (int64_t)(clampf(p.x, 0.0f, 1.0f - 1e-7f) * (float)P.Ws);
+  const int64_t y = (int64_t)(clampf(p.y, 0.0f, 1.0f - 1e-7f) * (float)P.Hs);
+  const int64_t z = (int64_t)(clampf(p.z, 0.0f, 1.0f - 1e-7f) * (float)P.Ds);
+  return P.sub[(z * P.Hs + y) * P.Ws + x];
+}
+
 // distance of a free-flight step against majorant sigma_maj
 __host__ __device__ inline float free_step(float sigma_maj, float u) {
   return sigma_maj > 0.0f ? -log1p_r(-u) / fmaxf(sigma_maj, 1e-20f) : 1e30f;
@@ -380,6 +395,9 @@ struct LaneState {
   V3 sh_d, sh_base;          // shadow direction (local), contribution / Tr
   float sh_t, sh_tmax, sh_tr;
   LaneRng rng;
+  // K6 counters: candidate collisions (every walk), MAIN null events,
+  // classified MAIN nulls, classified SHADOW events, sigma fetches
+  int32_t n_cand, n_main_null, n_cls_main, n_cls_sh, n_fetch;
 };
 
 // _init_carry for a world ray: enter the medium's unit cube
@@ -431,6 +449,18 @@ __host__ __device__ inline void init_common(LaneState& s) {
   s.sh_t = 0.0f;
   s.sh_tmax = 0.0f;
   s.sh_tr = 0.0f;
+  s.n_cand = s.n_main_null = s.n_cls_main = s.n_cls_sh = s.n_fetch = 0;
+}
+
+__host__ __device__ inline void write_cls_counts(const PrimalParams& P, int64_t i,
+                                                 const LaneState& s) {
+  if (!P.cls_counts) return;
+  int32_t* c = P.cls_counts + kClsCounters * i;
+  c[0] = s.n_cand;
+  c[1] = s.n_main_null;
+  c[2] = s.n_cls_main;
+  c[3] = s.n_cls_sh;
+  c[4] = s.n_fetch;
 }
 
 // The tracking loop.  Hooks:
@@ -479,9 +509,25 @@ __host__ __device__ inline void trace_lane(const PrimalParams& P, LaneState& s,
     float sig = 0.0f, r = 0.0f, ratio = 1.0f;
     V3 alb = {0.0f, 0.0f, 0.0f};
     if (collided) {   // sigma and albedo matter only at a collision
-      sigma_albedo(P, p, sig, alb);
-      r = sigma_maj > 0.0f ? sig / fmaxf(sigma_maj, 1e-20f) : 0.0f;
-      ratio = fmaxf(1.0f - r, 0.0f);
+      ++s.n_cand;
+      // K6: a MAIN candidate with u_evt * sigma_maj >= hi(p) >= sigma(p) is
+      // null, and a SHADOW candidate in a cell with hi == 0 has sigma == 0:
+      // both decide as the fetch would, with sig = 0 and the same draws.
+      // REPLAY always fetches (its cotangent needs sigma).
+      bool cls = false;
+      if (P.Ds > 0 && !is_rp) {
+        const float hi = subcell_bound(P, p);
+        cls = is_main ? u_evt * sigma_maj >= hi : hi <= 0.0f;
+        if (cls) {
+          if (is_main) ++s.n_cls_main; else ++s.n_cls_sh;
+        }
+      }
+      if (!cls) {
+        ++s.n_fetch;
+        sigma_albedo(P, p, sig, alb);
+        r = sigma_maj > 0.0f ? sig / fmaxf(sigma_maj, 1e-20f) : 0.0f;
+        ratio = fmaxf(1.0f - r, 0.0f);
+      }
     }
 
     if constexpr (Hooks::kAdjoint) {
@@ -508,6 +554,7 @@ __host__ __device__ inline void trace_lane(const PrimalParams& P, LaneState& s,
 
     // MAIN: delta tracking
     const bool real = collided && u_evt < r;
+    s.n_main_null += (collided && !real) ? 1 : 0;
     h.main_event(P, s, real, fin_seg, t_cand, p, sig, alb);
     s.t = t_next;
     if (fin_seg) {
@@ -615,6 +662,7 @@ __host__ __device__ inline void write_primal(const PrimalParams& P, int64_t i,
   P.escaped[i] = s.escaped ? 1 : 0;
   if (P.dims) P.dims[i] = s.rng.dim;
   if (P.steps) P.steps[i] = s.steps;
+  write_cls_counts(P, i, s);
 }
 
 // One primal lane from a world ray (from_state = false) or a PathState.

@@ -5,9 +5,11 @@
 //        -shared -Xcompiler -fPIC -o libuivr_primal.so volpath_primal.cu
 //
 // volpath_primal_kernel replaces uivr_tpu/ops/volpath_step.py:_step_kernel
-// (adjoint=False, k_cand=1; constant-emitter and envmap NEE branches, plus
-// the escape MIS of _finish) together with the persistent/compacted
-// host loops around it.  One thread traces one ray to completion, keyed by its
+// (adjoint=False, k_cand=1; constant-emitter and envmap NEE branches, the
+// subcell classification of PRE :892-907 (K6), plus the escape MIS of
+// _finish) together with the persistent/compacted host loops around it.
+// The in-kernel escape (:908-950) and the cross_steps unroll need no
+// counterpart: a lane here resolves escapes and crossings in its own loop.  One thread traces one ray to completion, keyed by its
 // ray index, so a lane walks the same path as in the plain twin.
 //
 // What bounds it: every tracking event reads the 8 float4 corners of the
@@ -18,8 +20,12 @@
 // arithmetic.  The design keeps all per-ray state in registers for the
 // whole path (no state planes in device memory, unlike the TPU kernel's
 // per-event round trips), reads each corner as one 16-byte load, and skips
-// the grid read for events that cannot collide.  Persistent scheduling,
-// shared-memory majorants and warp-level compaction are later work.
+// the grid read for events that cannot collide.  K6 skips it also for the
+// candidates that the subcell bound table (16 KB at 16^3, read from global
+// memory, mostly from L1/L2) decides: a MAIN candidate with
+// u * sigma_maj >= hi is null, a SHADOW candidate in a cell with hi == 0
+// passes with ratio 1.  Persistent scheduling, shared-memory majorants and
+// subcell tables, and warp-level compaction are later work.
 //
 // volpath_primal_state_kernel is the same lane started from a PathState
 // (K2's path_state entry): the recursive detached Li of the delayed DRT term

@@ -10,7 +10,9 @@ The CUDA sources live in ``csrc/``:
 - ``volpath_lane.cuh``    one lane's tracking state machine with trilinear
                           sigma+albedo reads and emitter NEE (K2, K3), run
                           to completion per ray (K5's keying), a template on
-                          its hooks; world-ray and PathState entries
+                          its hooks; world-ray and PathState entries; the
+                          subcell classification in front of the sigma
+                          fetch (K6)
 - ``volpath_adjoint.cuh`` the adjoint hooks: REPLAY walk, PRB and
                           transmittance cotangents, DRT reservoir (K4, K5)
 - ``volpath_drt.cuh``     the delayed DRT term's lanes
@@ -46,10 +48,17 @@ from ..scene.emitters import ConstantEmitter, EnvmapEmitter
 from ..scene.gradients import GradAccum, finalize_accum, init_accum
 from ..scene.scene import Scene
 
-# kernel launches, by kernel, since the process started (or a caller reset)
+# kernel launches, by kernel, since the process started (or a caller reset);
+# "subcell_classification" counts the walking kernels' launches that ran K6
+# (their medium had a subcell table)
 LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_adjoint": 0, "volpath_drt_walk": 0, "volpath_drt_nee": 0,
-            "volpath_drt_phase": 0, "volpath_drt_scatter": 0}
+            "volpath_drt_phase": 0, "volpath_drt_scatter": 0,
+            "subcell_classification": 0}
+# K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
+# candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
+# events, of which classified, classified SHADOW events, sigma fetches
+CLS_COUNTERS = ("candidates", "main_nulls", "cls_main_nulls", "cls_shadow", "fetches")
 # None, or a list to which every launch appends (kernel, start, end): CUDA
 # events recorded on the launch's stream just before and after it
 TIMINGS = None
@@ -129,10 +138,10 @@ class PrimalParams(ctypes.Structure):
             "o", "d", "L", "escaped", "dims", "steps", "grid", "majorant",
             "env_data", "env_alias", "env_row_pmf", "env_cond_pmf",
             "ps_active", "ps_depth", "ps_o", "ps_d_l", "ps_d_w", "ps_maxt",
-            "ps_last_pdf")]
+            "ps_last_pdf", "sub", "cls_counts")]
         + [("n", ctypes.c_int64)]
         + [(f, ctypes.c_int32) for f in (
-            "D", "H", "W", "Dc", "Hc", "Wc", "env_H", "env_W", "emitter",
+            "D", "H", "W", "Dc", "Hc", "Wc", "Ds", "Hs", "Ws", "env_H", "env_W", "emitter",
             "max_depth", "rr_depth", "max_steps", "draw_rounds", "use_nee",
             "hide_emitters")]
         + [("seed", ctypes.c_uint32)]
@@ -208,10 +217,11 @@ def _load(name: str = "primal"):
     return _libs[name]
 
 
-def _launch(key: str, launcher, *args) -> None:
+def _launch(key: str, launcher, *args, classified: bool = False) -> None:
     """Call the ``extern "C"`` launcher of kernel ``key`` (it returns a CUDA
-    error code), raise on failure and count the launch.  With
-    :data:`TIMINGS` a list, also record CUDA events around it."""
+    error code), raise on failure and count the launch (also as a K6 launch
+    when ``classified``).  With :data:`TIMINGS` a list, also record CUDA
+    events around it."""
     ev = None
     if TIMINGS is not None:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -221,6 +231,8 @@ def _launch(key: str, launcher, *args) -> None:
         raise RuntimeError(f"{key} launch failed: "
                            f"{_load('primal').uivr_error_string(rc).decode()} ({rc})")
     LAUNCHES[key] += 1
+    if classified:
+        LAUNCHES["subcell_classification"] += 1
     if ev is not None:
         ev[1].record()
         TIMINGS.append((key, ev[0], ev[1]))
@@ -242,10 +254,11 @@ def _need(t: torch.Tensor, name: str, device, dtype=torch.float32,
 
 def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
                   escaped=None, dims=None, steps=None, path_state=None,
-                  n: int = None, device=None) -> PrimalParams:
+                  n: int = None, device=None, cls_counts=None) -> PrimalParams:
     """Fill the kernels' common parameter block, checking every tensor it
     names.  The rays are ``o``, ``d`` (n, 3) or ``path_state``; a block
-    with neither (the delayed DRT term's) gives ``n`` and ``device``."""
+    with neither (the delayed DRT term's) gives ``n`` and ``device``.  The
+    medium's subcell table (K6) goes in when it has one."""
     if path_state is not None:
         n, device = path_state.o_l.shape[0], path_state.o_l.device
     elif o is not None:
@@ -263,6 +276,7 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
     p.escaped = opt(escaped, "escaped", torch.bool, (n,))
     p.dims = opt(dims, "dims", torch.int32, (n,))
     p.steps = opt(steps, "steps", torch.int32, (n,))
+    p.cls_counts = opt(cls_counts, "cls_counts", torch.int32, (n, len(CLS_COUNTERS)))
     if path_state is not None:
         ps = path_state
         p.ps_active = _need(ps.active, "path_state.active", dev, torch.bool, (n,))
@@ -280,6 +294,11 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
         raise ValueError("majorant grid must be (Dc, Hc, Wc)")
     p.majorant = _need(m.majorant_grid, "majorant grid", dev)
     p.Dc, p.Hc, p.Wc = m.majorant_grid.shape
+    if m.sub is not None:
+        if m.sub.ndim != 3:
+            raise ValueError("subcell table must be (Ds, Hs, Ws)")
+        p.sub = _need(m.sub, "subcell table", dev)
+        p.Ds, p.Hs, p.Ws = m.sub.shape
     p.n = n
     em = scene.emitter
     if isinstance(em, ConstantEmitter):
@@ -324,7 +343,9 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     paths resumed from ``path_state`` (then ``o``, ``d`` are unused).
 
     Returns ``(L (n,3), escaped (n,))`` and, with ``return_stats``, a dict of
-    per-lane ``dim`` (draws consumed) and ``steps``, like the plain twin.
+    per-lane ``dim`` (draws consumed) and ``steps``, like the plain twin;
+    the kernel adds ``cls``, K6's per-lane counters (n, 5) int32 in the
+    order of :data:`CLS_COUNTERS`.
     On ``cpu`` tensors this is the plain twin; on ``cuda`` tensors it
     launches ``volpath_primal_kernel`` (``volpath_primal_state_kernel``
     with a path state)."""
@@ -335,21 +356,23 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     n, dev = ref.shape[0], ref.device
     L = torch.empty((n, 3), dtype=torch.float32, device=dev)
     escaped = torch.empty((n,), dtype=torch.bool, device=dev)
-    dims = steps = None
+    dims = steps = cls = None
     if return_stats:
         dims = torch.empty((n,), dtype=torch.int32, device=dev)
         steps = torch.empty((n,), dtype=torch.int32, device=dev)
+        cls = torch.empty((n, len(CLS_COUNTERS)), dtype=torch.int32, device=dev)
     params = primal_params(cfg, scene, o, d, seed, L, escaped, dims, steps,
-                           path_state=path_state)
+                           path_state=path_state, cls_counts=cls)
     lib = _load("primal")
+    cls_on = params.Ds > 0
     if path_state is None:
         _launch("volpath_primal", lib.volpath_primal_launch, ctypes.byref(params),
-                _stream(dev))
+                _stream(dev), classified=cls_on)
     else:
         _launch("volpath_primal_state", lib.volpath_primal_state_launch,
-                ctypes.byref(params), _stream(dev))
+                ctypes.byref(params), _stream(dev), classified=cls_on)
     if return_stats:
-        return L, escaped, {"dim": _u32(dims), "steps": steps}
+        return L, escaped, {"dim": _u32(dims), "steps": steps, "cls": cls}
     return L, escaped
 
 
@@ -373,17 +396,19 @@ def adjoint_params(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
                    acc: GradAccum):
     """The adjoint kernel's parameter block and the tensors it writes:
     ``(params, res, stats)``; ``stats`` holds per-lane int32 counters:
-    ``dim`` (primary draws), ``alt_dim`` (alt draws), ``steps`` and
-    ``events`` (n, 2) (real collisions, replay collisions that scatter)."""
+    ``dim`` (primary draws), ``alt_dim`` (alt draws), ``steps``,
+    ``events`` (n, 2) (real collisions, replay collisions that scatter) and
+    ``cls`` (n, 5) (K6's counters, :data:`CLS_COUNTERS`)."""
     m = scene.medium
     n, dev = o.shape[0], o.device
     res = _empty_reservoir(n, dev)
     stats = {k: torch.empty((n,), dtype=torch.int32, device=dev)
              for k in ("dim", "alt_dim", "steps")}
     stats["events"] = torch.empty((n, 2), dtype=torch.int32, device=dev)
+    stats["cls"] = torch.empty((n, len(CLS_COUNTERS)), dtype=torch.int32, device=dev)
     a = AdjParams()
     a.P = primal_params(cfg, scene, o, d, seed, dims=stats["dim"],
-                        steps=stats["steps"])
+                        steps=stats["steps"], cls_counts=stats["cls"])
     a.L_in = _need(state_in, "state_in", dev, shape=(n, 3))
     a.dL = _need(dL, "dL", dev, shape=(n, 3))
     a.g_sigma, a.g_albedo = _grad_pointers(acc, m, dev)
@@ -410,7 +435,7 @@ def adjoint_walk_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
     acc = init_accum(scene.medium, need_emission=False)
     a, res, stats = adjoint_params(cfg, scene, o, d, seed, dL, state_in, acc)
     _launch("volpath_adjoint", _load("adjoint").volpath_adjoint_launch, ctypes.byref(a),
-            _stream(o.device))
+            _stream(o.device), classified=a.P.Ds > 0)
     return acc, res, {k: _u32(v) if k in ("dim", "alt_dim") else v
                       for k, v in stats.items()}
 

@@ -4,8 +4,8 @@ Port of ``uivr_tpu/scene/emitters.py``.  Sampling returns (direction,
 solid-angle pdf, radiance/pdf).  Envmap sampling uses a Walker alias table
 over the flattened H*W texels (one table row and one radiance row per
 sample).  The reference's coarse ``nee`` proxy for maps above 8192 texels
-is a TPU memory workaround and has no counterpart: the CUDA kernel reads
-the full-resolution table from device memory.
+(deferred-radiance NEE) is not ported yet (K3b, ROADMAP queue 2): the CUDA
+kernel reads the full-resolution table from device memory at any size.
 
 As the reference's XLA build does, a division by a constant is a
 multiplication by its float32 reciprocal, and fused multiply-adds sit where

@@ -4,17 +4,22 @@ Port of ``uivr_tpu/scene/medium.py``.  The medium fills the unit cube
 [0,1]^3 of its local frame; ``to_world`` is an arbitrary affine transform.
 Instead of the reference's TPU corner tables, ``Medium.grid`` holds one
 interleaved (D, H, W, 4) float32 grid [sigma, albedo_rgb] whose corners the
-CUDA kernel reads as one ``float4`` each.
+CUDA kernel reads as one ``float4`` each.  ``Medium.sub`` is the subcell
+classification bound of the reference's step kernel (``build_tables``'s
+``sub``): a conservative upper bound of sigma_t over each cell of a fine
+uniform grid, which lets the walking kernels decide most null events
+without reading the grid.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.grids import build_majorant_grid, trilinear_sample
+from ..core.grids import (build_bound_grid, build_majorant_grid, cls_dims,
+                          trilinear_sample)
 
 
 class MediumParams(NamedTuple):
@@ -36,6 +41,10 @@ class MediumConfig:
     # same budget keeps the port's paths identical to the reference's.
     # 0 keeps the requested factor.
     kernel_majorant_max_cells: int = 2048
+    # Cell budget of the subcell classification grid (the reference's
+    # UIVR_CLASS_CELLS, default 8192); 0 turns classification off.  It
+    # changes no path, only which events skip the sigma fetch.
+    cls_cells: int = 8192
 
 
 class Medium(NamedTuple):
@@ -46,6 +55,7 @@ class Medium(NamedTuple):
     majorant_grid: torch.Tensor   # (Dc, Hc, Wc), scaled
     phase_g: float               # float32 value
     grid: torch.Tensor            # (D, H, W, 4) [sigma (unscaled), albedo]
+    sub: Optional[torch.Tensor]   # (Ds, Hs, Ws) scaled sigma bound, or None (off)
 
 
 def _effective_factor(requested: int, shape: Tuple[int, ...]) -> int:
@@ -88,6 +98,14 @@ def finalize_medium(params: MediumParams, cfg: MediumConfig,
         maj = build_majorant_grid(sig, f)
     scale = float(np.float32(cfg.scale))
     maj = maj * scale
+    sub = None
+    dims = cls_dims(params.sigma_t.shape, cfg.cls_cells)
+    if dims[0] > 0:
+        # detached like the majorant; |sigma| so that hi == 0 certifies
+        # sigma == 0, and the 1e-5 margin keeps hi above the rounded
+        # trilinear sigma, so a real collision never classifies as null
+        margin = np.float32(np.float32(scale) * np.float32(1.00001))
+        sub = (build_bound_grid(sig.abs(), dims) * float(margin)).contiguous()
     grid = torch.cat([params.sigma_t, params.albedo], dim=-1).to(torch.float32)
     return Medium(
         params=params, scale=scale,
@@ -95,7 +113,7 @@ def finalize_medium(params: MediumParams, cfg: MediumConfig,
         world_to_local=torch.as_tensor(inv, device=dev),
         majorant_grid=maj.contiguous(),
         phase_g=float(np.float32(cfg.phase_g)),
-        grid=grid.contiguous())
+        grid=grid.contiguous(), sub=sub)
 
 
 def sigma_albedo_at(m: Medium, p: torch.Tensor):
