@@ -74,11 +74,41 @@ must give the same result:
    16, all three grids) under ``volpathsimple-drt`` and
    ``volpathsimple-basic``, K6 on and off: kernels only, no twin, the same
    FD values and adjoint gradients (relative L1 <= 1e-4).
+9b. xml: the XML path.  ``write_standins`` writes stand-in assets of the
+   shapes janga-smoke's and dust-devil's XML files and scene vars name
+   (plumes of 136x264x136 and 256^3 voxels, albedo 128x256x128 noise and a
+   256^3 sand colour, ``procedural_sky`` at 1024x2048 as .hdr and 2048x4096
+   as .exr) from a seed into a temporary scene directory beside copies of
+   the XML files, and ``UIVR_SCENE_DIR`` points the registry there.
+   xml_render: ``cli.render --scene janga-smoke --sensor 0 --spp 64`` at
+   720x620 (28,569,600 rays): every launch took K3b, no twin ran, the EXR
+   reads back.  k3b_primal / k3b_adjoint: ``volpath_primal_kernel`` against
+   the twin's deferred mode on 2**16 random-pixel rays of sensor 0 (phase
+   3's bar) and ``volpath_adjoint_kernel`` against the deferred adjoint walk
+   on 8,192 rays (phase 6's bar).  k3b_chunk: the primal kernel against the
+   deferred twin on the render's first chunk (2**20 rays, phase 3's bar),
+   the shape its time is taken at.  unbiased: sensor 0 at 256 spp with K3b,
+   with K3 (the map without its proxy) and without NEE; per channel the
+   paired per-pixel difference's mean over its standard error, K3b against
+   the NEE-free image at most 4 (K3 is reported: its full-resolution alias
+   table is biased, ROADMAP C2).  xml-train: ``run_optimization`` of
+   ``volpathsimple-drt`` at full width from the ``start_from_value`` grids,
+   2 iterations and one step from the ground truth, references from
+   ``build_ref()`` at 4 spp (a cut: the step does not depend on them);
+   every walking launch took K3b, in the main run and in each recorded
+   step; ``check_step`` on its truth step (the adjoint slice and the DRT
+   term, whose resumed primal takes K3b, against the deferred twins).
+   dust-devil: its 4k map (8,388,608 texels), sensor 0 at 64 spp with K3b
+   and K3 in turns and without NEE; K3b against the NEE-free image at most
+   4 standard errors per channel.
 10. kernels: every kernel of both paths at the shape the main path gives
    it, with its launches, time, plain version's time, bound and agreement;
    K6's row gives the walking kernels' times with K6 on and off at the
    main path's shapes and its counters (MAIN nulls classified, fetches
-   avoided).
+   avoided); K3b's row (``deferred_nee``) the primal kernel with K3b and
+   with K3 on the XML render's first chunk, its error and plain time on
+   that chunk.  ``launches_per_train_step`` is the counters' growth over
+   the main run's first recorded step.
 11. the last line: {"ok": true, "device": {...}}.
 
 ``bound_ms`` is the larger of the bytes the function must move (each input
@@ -113,7 +143,13 @@ FLOP_PER_EXTRA_DRAW = 60
 TEA_OPS_PER_ROUND = 17
 
 
+T0 = time.perf_counter()
+
+
 def emit(obj):
+    """One JSON line; phase records carry the script's elapsed seconds."""
+    if "phase" in obj:
+        obj = dict(obj, elapsed_s=round(time.perf_counter() - T0, 3))
     print(json.dumps(obj), flush=True)
 
 
@@ -253,8 +289,9 @@ class StepRecorder:
     """Records what the steps of ``opt.run_optimization`` do, around the
     package's own functions, each of which still runs as it is: CUDA events
     of the pixel draw, of the whole step and of every kernel launch
-    (``volpath_step.TIMINGS``); the adjoint walk's inputs and outputs; the
-    delayed DRT term's inputs; the gradients the backward returns."""
+    (``volpath_step.TIMINGS``); the launch counters' growth over the step
+    (``counts``); the adjoint walk's inputs and outputs; the delayed DRT
+    term's inputs; the gradients the backward returns."""
 
     def __init__(self, vs, loop):
         self.vs, self.loop = vs, loop
@@ -287,6 +324,7 @@ class StepRecorder:
                     self.steps.append(rec)
                     torch.cuda.synchronize()
                     vs.TIMINGS = rec["launches"]
+                    before = dict(vs.LAUNCHES)
                     t0 = time.perf_counter()
                     rec["start"] = event()
                     out = step(*args)
@@ -294,6 +332,7 @@ class StepRecorder:
                     torch.cuda.synchronize()
                     rec["seconds"] = time.perf_counter() - t0
                     vs.TIMINGS = None
+                    rec["counts"] = {k: vs.LAUNCHES[k] - before[k] for k in before}
                     rec["loss"] = float(out[2])
                     return out
                 return run
@@ -426,8 +465,9 @@ def phase_adjoint(card, dev, vs, janga, dust, cube, rays_of):
         bad = min(on_off.values()) < 1.0 or max(on_off_rel.values()) > 1e-4
         if need is not None:
             t0 = time.perf_counter()
-            Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed)
-            acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt)
+            Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed, deferred=True)
+            acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt,
+                                                           deferred=True)
             torch.cuda.synchronize()
             agree = {"dim": equal_frac(st_k["dim"], st_t["dim"]),
                      "alt_dim": equal_frac(st_k["alt_dim"], st_t["alt_dim"]),
@@ -463,11 +503,12 @@ def check_step(card, vs, tag, step):
     sl = slice(n - SLICE, n)
     t0 = time.perf_counter()
     Lt, _ = volpath_flat.sample_primal(cfg, sc, a["o"][sl], a["d"][sl], a["seed"],
-                                       lane0=n - SLICE)
+                                       lane0=n - SLICE, deferred=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
     _, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, a["o"][sl], a["d"][sl], a["seed"],
-                                               a["dL"][sl], a["L"][sl], lane0=n - SLICE)
+                                               a["dL"][sl], a["L"][sl], lane0=n - SLICE,
+                                               deferred=True)
     torch.cuda.synchronize()
     adj_plain_ms = (time.perf_counter() - t1) * 1e3
     adj_agree = {"replay_L": lane_agreement(a["L"][sl], Lt),
@@ -504,7 +545,7 @@ def check_step(card, vs, tag, step):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _, p = volpath_flat._drt_backward_flat(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
-                                               acc_t, return_stats=True)
+                                               acc_t, return_stats=True, deferred=True)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     st = laps.stamps
@@ -539,15 +580,19 @@ def check_step(card, vs, tag, step):
     return dict(adj_rec, **rec, drt_stats=k)
 
 
-def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoints=True):
+def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoints=True,
+                ref_bundle=None, need=()):
     """run_optimization of volpathsimple-drt at the preset's full width
     (batch 32,768 pixels, 16 adjoint spp, primal factor 64), ``n_iter``
     iterations from the constant start with the grids at full resolution
     (no upsampling), then one step of it from the ground-truth grids; both
     recorded by StepRecorder.  The counters are set to 0 just before the
-    main run: every training kernel and K6 must launch, no twin may run,
-    the parameters must change (and with ``checkpoints`` the .vol files
-    read back)."""
+    main run: every training kernel, K6 and the counters ``need`` name must
+    launch, no twin may run, the parameters must change (and with
+    ``checkpoints`` the .vol files read back).  The references are
+    rendered from ``ref_bundle`` (the preset's reference scene) where it
+    is given, else from the training bundle's grids, for the bundle's
+    training sensors."""
     import torch
     from uivr_tpu_torch.config import get_int_config
     from uivr_tpu_torch.core import vol_io
@@ -559,10 +604,12 @@ def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoi
     cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
     out_dir = out_dir / name
     t0 = time.perf_counter()
-    refs = render_references(b, RenderSettings(integrator=cfg, medium=b.medium_cfg,
-                                               film_size=b.film_size, spp=ref_spp,
-                                               spp_grad=ref_spp),
-                             str(out_dir / "references"), spp=ref_spp, overwrite=True)
+    rb = ref_bundle or b
+    refs = render_references(rb, RenderSettings(integrator=cfg, medium=rb.medium_cfg,
+                                                film_size=rb.film_size, spp=ref_spp,
+                                                spp_grad=ref_spp),
+                             str(out_dir / "references"), spp=ref_spp, overwrite=True,
+                             sensors=list(b.sensors) if b.sensors else None)
     ref_s = time.perf_counter() - t0
     width = dict(spp=16, lr=5e-3, primal_spp_factor=64, batch_size=32768, upsample=None,
                  preview_spp=16)
@@ -600,8 +647,8 @@ def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoi
                 vols[f"{tag}_{key}"] = bool(np.array_equal(data, getattr(grids, key).cpu().numpy()))
     changed = {k: not torch.equal(getattr(final, k), getattr(b.start_from, k))
                for k in ("sigma_t", "albedo")}
-    steps = [{"seconds": s["seconds"], "loss": s["loss"], "parts_ms": step_parts(s)}
-             for s in main.steps + truth.steps]
+    steps = [{"seconds": s["seconds"], "loss": s["loss"], "launches": s["counts"],
+              "parts_ms": step_parts(s)} for s in main.steps + truth.steps]
     rec = {"phase": "train", "scene": name, "integrator": "volpathsimple-drt",
            "batch": 32768, "spp_primal": 1024, "spp_grad": 16,
            "grid": list(b.params.sigma_t.shape), "sensors": b.cameras.n_sensors,
@@ -612,7 +659,8 @@ def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoi
            "launches": launches, "plain_twin_calls": plain_calls,
            "checkpoints_read_back": vols, "params_changed": changed, "card": card}
     emit(rec)
-    missing = [k for k in TRAIN_KERNELS + ("subcell_classification",) if not launches[k] > 0]
+    missing = [k for k in TRAIN_KERNELS + ("subcell_classification",) + tuple(need)
+               if not launches[k] > 0]
     if missing or any(plain_calls.values()):
         raise RuntimeError(f"{name}: training did not run through the kernels: missing "
                            f"{missing}, plain twin calls {plain_calls}")
@@ -778,12 +826,12 @@ def drt_bounds(n, k, res, scene):
 
 def training_kernels(train, truth, check):
     """Kernel-line entries of the training path's kernels: launches in the
-    main run (and per step); times of their launches in the recorded step from
+    main run (and in its first step); times of their launches in the recorded step from
     the ground-truth grids (walks as long as late in a run), with bounds
     from that step's counts; plain times and errors from ``check_step`` on
     that step."""
     runs = {k: {"launches": train["launches"][k],
-                "launches_per_train_step": train["launches"][k] / len(train["iterations"])}
+                "launches_per_train_step": train["iterations"][0]["launches"][k]}
             for k in TRAIN_KERNELS}
     parts = train["truth_step"]["parts_ms"]
     a = truth["adjoint"]
@@ -856,6 +904,396 @@ def walking_on_off(vs, step, check):
                                 "shape": f"{n} adjoint rays, truth step"},
             "volpath_primal_state": {"ms_on": rec[0], "ms_off": rec[1],
                                      "shape": f"{n} path states, truth step"}}
+
+
+# ------------------------------------------------------------- XML scenes
+# The janga-smoke and dust-devil presets load Mitsuba XML scenes whose
+# assets the repository does not hold.  write_standins writes assets of the
+# shapes the XML files and the presets' scene vars name, from a seed, into a
+# scene directory beside copies of the XML files; UIVR_SCENE_DIR points the
+# registry there.  Only the assets' contents are stand-ins.
+STANDINS = {
+    "janga-smoke": {"sigma": ("volumes/janga-smoke-264-136-136.vol", (136, 264, 136)),
+                    "albedo": ("volumes/albedo-noise-256-128-128.vol", (128, 256, 128)),
+                    "envmap": ("textures/gamrig_2k.hdr", (1024, 2048))},
+    "dust-devil": {"sigma": ("volumes/embergen_dust_devil_tornado_a_50-256-256-256.vol",
+                             (256, 256, 256)),
+                   "albedo": ("volumes/albedo-constant-sand-256-256-256.vol", (256, 256, 256)),
+                   "envmap": ("textures/kloofendal_38d_partly_cloudy_4k.exr", (2048, 4096))},
+}
+
+
+def plume(shape, rs):
+    """A smoke-like density on a (D, H, W) grid over the unit cube: 24
+    Gaussian blobs with a falloff in height, peak 1 (float32)."""
+    z, y, x = (np.linspace(0, 1, n, dtype=np.float32) for n in shape)
+    out = np.zeros(shape, np.float32)
+    for _ in range(24):
+        c = (rs.rand(3) * 0.7 + 0.15).astype(np.float32)
+        s = np.float32(rs.rand() * 0.12 + 0.04)
+        a = np.float32(rs.rand() * 1.2)
+        gx, gy, gz = (np.exp(-(v - cv) ** 2 / (2 * s * s)) for v, cv in zip((x, y, z), c))
+        out += a * gz[:, None, None] * gy[None, :, None] * gx[None, None, :]
+    out *= np.exp(-2.5 * np.abs(y - 0.4))[None, :, None]
+    return out / out.max()
+
+
+def write_standins(root, seed=20261017):
+    """Stand-in assets for the janga-smoke and dust-devil XML scenes under
+    ``root``, each beside a copy of its XML file; returns seconds per scene."""
+    import shutil
+    from uivr_tpu_torch.config.scenes import procedural_sky
+    from uivr_tpu_torch.core import exr_io, hdr_io, vol_io
+    rs = np.random.RandomState(seed)
+    seconds = {}
+    for name, files in STANDINS.items():
+        t0 = time.perf_counter()
+        d = root / name
+        (d / "volumes").mkdir(parents=True, exist_ok=True)
+        (d / "textures").mkdir(parents=True, exist_ok=True)
+        shutil.copy(HERE / "scenes" / name / f"{name}.xml", d / f"{name}.xml")
+        path, shape = files["sigma"]
+        vol_io.write_vol(str(d / path), plume(shape, rs)[..., None])
+        path, shape = files["albedo"]
+        if name == "janga-smoke":   # noise in [0.5, 0.95]
+            alb = rs.uniform(0.5, 0.95, shape + (3,)).astype(np.float32)
+        else:                       # a constant sand colour
+            alb = np.broadcast_to(np.array([0.76, 0.62, 0.45], np.float32), shape + (3,))
+        vol_io.write_vol(str(d / path), alb)
+        path, (h, w) = files["envmap"]
+        sky = procedural_sky(h, w)
+        if path.endswith(".hdr"):
+            hdr_io.write_hdr(str(d / path), sky)
+        else:
+            exr_io.write_exr(str(d / path), sky, compression="none")
+        seconds[name] = time.perf_counter() - t0
+    return seconds
+
+
+def xml_scene(name, dev, ref=False):
+    """(preset, bundle, scene) of an XML preset from $UIVR_SCENE_DIR: the
+    training scene, or the reference scene with ``ref``."""
+    from uivr_tpu_torch.config import get_scene_config
+    from uivr_tpu_torch.scene.medium import finalize_medium
+    from uivr_tpu_torch.scene.scene import Scene
+    preset = get_scene_config(name)
+    b = preset.build_ref(device=dev) if ref else preset.build(device=dev)
+    return preset, b, Scene(finalize_medium(b.params, b.medium_cfg, b.to_world),
+                            b.emitter, b.cameras)
+
+
+def full_res(sc):
+    """The same scene with K3 instead of K3b: its envmap without the coarse
+    proxy, which is what make_envmap(data, nee_max_texels=0) builds."""
+    return sc._replace(emitter=sc.emitter._replace(nee=None))
+
+
+def xml_scene_record(name, b, sc, seconds):
+    m, em = sc.medium, sc.emitter
+    return {"phase": "xml_scene", "scene": name, "load_s": seconds,
+            "film": list(b.film_size), "sensors": b.cameras.n_sensors,
+            "training_sensors": len(b.sensors) if b.sensors else None,
+            "sigma_t": list(b.params.sigma_t.shape), "albedo": list(b.params.albedo.shape),
+            "majorant_resolution_factor": b.medium_cfg.majorant_factor,
+            "majorant_cells": list(m.majorant_grid.shape),
+            "subcells": list(m.sub.shape) if m.sub is not None else None,
+            "envmap": list(em.data.shape[:2]), "envmap_texels": em.data.shape[0] * em.data.shape[1],
+            "proxy": list(em.nee.data.shape[:2]) if em.nee is not None else None,
+            "medium_to_world": np.asarray(b.to_world).round(6).tolist()}
+
+
+def render_each(b, settings, seed, spp, turns=False, sensor=0):
+    """Full-frame renders of ``sensor`` through ``render_image``, one per
+    entry of ``settings`` (name -> (RenderSettings, emitter)), or in turns
+    (a, b, b, a) with ``turns``: the images and each one's mean host-clock
+    seconds."""
+    import torch
+    from uivr_tpu_torch.render import batched
+    names = list(settings)
+    imgs, secs = {}, {k: [] for k in names}
+    for k in (names + names[::-1] if turns else names):
+        st, emitter = settings[k]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs[k] = batched.render_image(st, b.params, emitter, b.cameras, sensor,
+                                       seed=seed, spp=spp, medium_to_world=b.to_world)
+        secs[k].append(time.perf_counter() - t0)
+    return imgs, {k: sum(v) / len(v) for k, v in secs.items()}
+
+
+def paired_means(a, b):
+    """Per channel: the image means of ``a`` and ``b``, the mean of their
+    per-pixel difference and its standard error from the per-pixel spread."""
+    diff = (a - b).reshape(-1, 3).astype(np.float64)
+    n = diff.shape[0]
+    return {"mean_a": a.reshape(-1, 3).mean(0).tolist(), "mean_b": b.reshape(-1, 3).mean(0).tolist(),
+            "mean_diff": diff.mean(0).tolist(),
+            "se_diff": (diff.std(0, ddof=1) / math.sqrt(n)).tolist()}
+
+
+def k3b_chunk_bound(o, sc, stats):
+    """bound_ms of volpath_primal with K3b on one chunk: rays, grid,
+    majorant, subcell table, the full-resolution map (radiance) and the
+    proxy's tables read once, radiance and escapes written once, against
+    the operations of this chunk's tracking steps and draws; and the fetch
+    model's bound (132 B per event, 8 B if K6 classified it, 28 B per NEE
+    sample: 16 B of proxy table and 12 B of radiance, 36 B per ray)."""
+    m, em = sc.medium, sc.emitter
+    n = o.shape[0]
+    steps = int(stats["steps"].sum())
+    extra = int(stats["dim"].sum()) - 2 * steps
+    tables = m.grid.numel() + m.majorant_grid.numel() + m.sub.numel() + em.data.numel() \
+        + sum(t.numel() for t in (em.nee.alias_tab, em.nee.row_pmf, em.nee.cond_pmf))
+    req = bound(24 * n + 4 * tables + 13 * n,
+                FLOP_PER_STEP * steps + FLOP_PER_EXTRA_DRAW * extra)
+    gather, _ = bound(event_fetch_bytes(steps, cls_counts(stats["cls"])) + 28 * extra / 5
+                      + 36 * n, 0)
+    return req, gather, {"tracking_steps": steps, "extra_draws": extra}
+
+
+def phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk):
+    """The XML path: janga-smoke's XML preset at full width (render CLI,
+    K3b against its plain version and against K3, run_optimization) and
+    dust-devil's 4k map (render, K3b and K3 timed in turns).  Returns the
+    kernels-line entry of K3b and the XML records."""
+    import os
+    import tempfile
+
+    import torch
+    from uivr_tpu_torch.cli import render as cli_render
+    from uivr_tpu_torch.config import get_int_config
+    from uivr_tpu_torch.core import exr_io
+    from uivr_tpu_torch.integrators import volpath_flat
+    from uivr_tpu_torch.render import batched
+    tmp = tempfile.TemporaryDirectory(prefix="uivr_scenes_", dir=out_dir)
+    root = Path(tmp.name)
+    asset_s = write_standins(root)
+    os.environ["UIVR_SCENE_DIR"] = str(root)
+    try:
+        return _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk,
+                           asset_s, cli_render, get_int_config, exr_io, volpath_flat,
+                           batched, torch)
+    finally:
+        del os.environ["UIVR_SCENE_DIR"]
+        tmp.cleanup()
+
+
+def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, asset_s,
+                cli_render, get_int_config, exr_io, volpath_flat, batched, torch):
+    out = {}
+    # ----------------------------------------------------------- xml-render
+    exr = out_dir / "janga-smoke-xml-s0.exr"
+    for k in vs.LAUNCHES:
+        vs.LAUNCHES[k] = 0
+    for k in volpath_flat.CALLS:
+        volpath_flat.CALLS[k] = 0
+    t0 = time.perf_counter()
+    img, dt = cli_render.main(["--scene", "janga-smoke", "--sensor", "0", "--spp", "64",
+                               "--out", str(exr)])
+    cli_s = time.perf_counter() - t0
+    launches, plain = dict(vs.LAUNCHES), dict(volpath_flat.CALLS)
+    back = exr_io.read_exr(str(exr))
+    t0 = time.perf_counter()
+    preset, b, sc = xml_scene("janga-smoke", dev)
+    load_s = time.perf_counter() - t0
+    emit(dict(xml_scene_record("janga-smoke", b, sc, load_s), assets_s=asset_s, card=card))
+    W, H = b.film_size
+    rays = W * H * 64
+    rec = {"phase": "xml_render", "scene": "janga-smoke", "sensor": 0, "spp": 64,
+           "film": [W, H], "rays": rays, "seconds": dt, "cli_seconds": cli_s,
+           "mrays_per_s": rays / dt / 1e6, "image_mean": img.reshape(-1, 3).mean(0).tolist(),
+           "launches": launches, "plain_twin_calls": plain, "exr_shape": list(back.shape),
+           "exr_matches": bool(np.array_equal(back, img)), "card": card}
+    emit(rec)
+    if not (launches["volpath_primal"] > 0
+            and launches["deferred_nee"] == launches["volpath_primal"]
+            and launches["subcell_classification"] > 0 and not any(plain.values())):
+        raise RuntimeError(f"janga-smoke XML: the render did not run K3b in the kernel: "
+                           f"{launches}, plain twin calls {plain}")
+    if back.shape != (H, W, 3) or not np.isfinite(back).all() or not np.array_equal(back, img):
+        raise RuntimeError("janga-smoke XML: the rendered EXR is malformed")
+    out["render"] = rec
+
+    # ------------------------------------- K3b against its plain version
+    cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
+    seed = 4242
+    o, d = random_pixel_rays(b, 1 << 16)
+    Lk, ek, sk = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True,
+                                            deferred=True)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    Lf, _ = vs.sample_primal_kernel(cfg, full_res(sc), o, d, seed)
+    agree = lane_agreement(Lk, Lp)
+    mk, mp = Lk.mean(0).tolist(), Lp.mean(0).tolist()
+    means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mk, mp))
+    rec = {"phase": "k3b_primal", "scene": "janga-smoke (XML)", "rays": o.shape[0],
+           "agreement": agree, "need": 0.90, "same_draws": equal_frac(sk["dim"], sp["dim"]),
+           "escaped_equal": equal_frac(ek, ep), "mean_kernel": mk, "mean_plain": mp,
+           "max_abs_err": float((Lk - Lp).abs().max()), "plain_ms": p_ms,
+           "lanes_differing_from_k3": float((Lk != Lf).any(dim=-1).float().mean()),
+           "card": card}
+    emit(rec)
+    if agree < 0.90 or not means_ok:
+        raise RuntimeError("K3b: volpath_primal disagrees with the deferred twin")
+    out["primal"] = rec
+    n = 8192
+    o, d = random_pixel_rays(b, n)
+    dL = torch.from_numpy(np.random.RandomState(7).rand(n, 3).astype(np.float32) / n).to(dev)
+    Lk, _ = vs.sample_primal_kernel(cfg, sc, o, d, seed)
+    for k in vs.LAUNCHES:
+        vs.LAUNCHES[k] = 0
+    acc_k, res_k, st_k = vs.adjoint_walk_kernel(cfg, sc, o, d, seed, dL, Lk)
+    adj_deferred = vs.LAUNCHES["deferred_nee"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lk, deferred=True)
+    torch.cuda.synchronize()
+    adj_plain_ms = (time.perf_counter() - t0) * 1e3
+    agree = {"dim": equal_frac(st_k["dim"], st_t["dim"]),
+             "alt_dim": equal_frac(st_k["alt_dim"], st_t["alt_dim"]),
+             "reservoir_depth": equal_frac(res_k.depth, res_t.depth)}
+    rel = {"sigma": rel_l1(acc_k.sigma, acc_t.sigma), "albedo": rel_l1(acc_k.albedo, acc_t.albedo)}
+    rec = {"phase": "k3b_adjoint", "scene": "janga-smoke (XML)", "rays": n,
+           "agreement": agree, "need": 0.90, "rel_l1": rel, "plain_ms": adj_plain_ms,
+           "deferred_launches": adj_deferred, "grad_abs_sum": float(acc_t.sigma.abs().sum()),
+           "card": card}
+    emit(rec)
+    if min(agree.values()) < 0.90 or max(rel.values()) > 1e-2 or adj_deferred != 1 \
+            or not rec["grad_abs_sum"] > 0:
+        raise RuntimeError("K3b: volpath_adjoint disagrees with the deferred twin")
+
+    # ------- K3b at the render's chunk: against its plain version, K3, bound
+    co, cd = render_chunk(b)
+    seed0 = 1234
+    Lk, ek, ck = vs.sample_primal_kernel(cfg, sc, co, cd, seed0, return_stats=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, co, cd, seed0, return_stats=True,
+                                            deferred=True)
+    torch.cuda.synchronize()
+    p_ms = (time.perf_counter() - t0) * 1e3
+    k3b_ms, k3_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, co, cd, seed0),
+                              lambda: vs.sample_primal_kernel(cfg, full_res(sc), co, cd, seed0), 2)
+    (b_ms, b_by), g_ms, counts = k3b_chunk_bound(co, sc, ck)
+    agree = lane_agreement(Lk, Lp)
+    mk, mp = Lk.mean(0).tolist(), Lp.mean(0).tolist()
+    means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mk, mp))
+    rec = {"phase": "k3b_chunk", "scene": "janga-smoke (XML)", "rays": co.shape[0],
+           "agreement": agree, "need": 0.90, "same_draws": equal_frac(ck["dim"], sp["dim"]),
+           "escaped_equal": equal_frac(ek, ep), "mean_kernel": mk, "mean_plain": mp,
+           "max_abs_err": float((Lk - Lp).abs().max()), "plain_ms": p_ms,
+           "ms": {"k3b": k3b_ms, "k3": k3_ms}, "card": card}
+    emit(rec)
+    if agree < 0.90 or not means_ok:
+        raise RuntimeError("K3b: volpath_primal disagrees with the deferred twin on the "
+                           "render's chunk")
+    out["chunk"] = rec
+
+    # ---------------------------------------------------------- unbiasedness
+    # K3b and K3 against each other and against the estimator without NEE
+    # (escapes only, no alias table), whose mean is that of the same
+    # integral; pixels are independent, so the per-pixel spread of each
+    # paired difference gives its standard error
+    st = batched.RenderSettings(integrator=cfg, medium=b.medium_cfg, film_size=b.film_size,
+                                spp=256, spp_grad=256)
+    no_nee = dataclasses.replace(st, integrator=dataclasses.replace(cfg, use_nee=False))
+    imgs, secs = render_each(b, {"k3b": (st, sc.emitter), "k3": (st, full_res(sc).emitter),
+                                 "no_nee": (no_nee, sc.emitter)}, seed=99, spp=256)
+    pairs = {f"{a}-{c_}": paired_means(imgs[a], imgs[c_])
+             for a, c_ in (("k3b", "no_nee"), ("k3", "no_nee"), ("k3b", "k3"))}
+    for v in pairs.values():
+        v["z"] = [abs(m_) / max(s_, 1e-30) for m_, s_ in zip(v["mean_diff"], v["se_diff"])]
+    rec = {"phase": "unbiased", "scene": "janga-smoke (XML)", "sensor": 0, "spp": 256,
+           "rays": W * H * 256, "pairs": pairs, "limit_z": 4.0, "render_s": secs,
+           "chunk_ms": {"k3b": k3b_ms, "k3": k3_ms}, "card": card}
+    emit(rec)
+    if max(pairs["k3b-no_nee"]["z"]) > 4.0 or not all(np.isfinite(i).all() for i in imgs.values()):
+        raise RuntimeError(f"K3b is off the no-NEE estimate: z = {pairs['k3b-no_nee']['z']}")
+    out["unbiased"] = rec
+
+    # ---------------------------------------------------------- xml-train
+    ref = xml_scene("janga-smoke", dev, ref=True)
+    train, first, truth = phase_train(card, vs, (preset, b, sc), out_dir / "xml", 2, 4,
+                                      checkpoints=False, ref_bundle=ref[1],
+                                      need=("deferred_nee",))
+    grads = [s_["grads"] for s_ in (first, truth)]
+    emit({"phase": "xml_train_grads", "scene": "janga-smoke (XML)",
+          "grads_abs_sum": {tag: [float(g.sigma_t.abs().sum()), float(g.albedo.abs().sum())]
+                            for tag, g in zip(("first", "truth"), grads)}, "card": card})
+    if not all(torch.isfinite(g.sigma_t).all() and torch.isfinite(g.albedo).all()
+               and g.sigma_t.abs().sum() > 0 and g.albedo.abs().sum() > 0 for g in grads):
+        raise RuntimeError("janga-smoke XML training: the gradients are not finite and nonzero")
+    launches = train["launches"]
+    walking = launches["volpath_primal"] + launches["volpath_primal_state"] \
+        + launches["volpath_adjoint"]
+    if launches["deferred_nee"] != walking:
+        raise RuntimeError(f"janga-smoke XML training: K3b ran in {launches['deferred_nee']} "
+                           f"of {walking} walking launches")
+    for tag, step in (("first", first), ("truth", truth)):
+        c = step["counts"]
+        step_walking = c["volpath_primal"] + c["volpath_primal_state"] + c["volpath_adjoint"]
+        if not (c["volpath_adjoint"] == 1 and c["volpath_primal_state"] == 1
+                and c["deferred_nee"] == step_walking):
+            raise RuntimeError(f"janga-smoke XML {tag} step: K3b ran in {c['deferred_nee']} "
+                               f"of {step_walking} walking launches: {c}")
+    # the step's adjoint slice and DRT term (with K3b in its resumed primal)
+    # against the deferred twins, on the step's own inputs
+    out["check"] = check_step(card, vs, "janga-smoke XML truth", truth)
+    out["train"] = train
+
+    # ---------------------------------------------------- dust-devil (4k map)
+    t0 = time.perf_counter()
+    _, db, dsc = xml_scene("dust-devil", dev)
+    emit(dict(xml_scene_record("dust-devil", db, dsc, time.perf_counter() - t0), card=card))
+    dst = batched.RenderSettings(integrator=cfg, medium=db.medium_cfg, film_size=db.film_size,
+                                 spp=64, spp_grad=64)
+    for k in vs.LAUNCHES:
+        vs.LAUNCHES[k] = 0
+    dimgs, dsecs = render_each(db, {"k3b": (dst, dsc.emitter), "k3": (dst, full_res(dsc).emitter)},
+                               seed=1234, spp=64, turns=True)
+    dl = dict(vs.LAUNCHES)
+    d_no_nee = dataclasses.replace(dst, integrator=dataclasses.replace(cfg, use_nee=False))
+    nimg, nsecs = render_each(db, {"no_nee": (d_no_nee, dsc.emitter)}, seed=1234, spp=64)
+    dimgs.update(nimg)
+    dsecs.update(nsecs)
+    dpairs = {f"{a}-{c_}": paired_means(dimgs[a], dimgs[c_])
+              for a, c_ in (("k3b", "no_nee"), ("k3", "no_nee"), ("k3b", "k3"))}
+    for v in dpairs.values():
+        v["z"] = [abs(m_) / max(s_, 1e-30) for m_, s_ in zip(v["mean_diff"], v["se_diff"])]
+    dco, dcd = render_chunk(db)
+    d3b_ms, d3_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, dsc, dco, dcd, seed0),
+                              lambda: vs.sample_primal_kernel(cfg, full_res(dsc), dco, dcd, seed0),
+                              2)
+    dW, dH = db.film_size
+    rec = {"phase": "xml_render", "scene": "dust-devil", "sensor": 0, "spp": 64,
+           "film": [dW, dH], "rays": dW * dH * 64, "render_s": dsecs,
+           "mrays_per_s": {k: dW * dH * 64 / v / 1e6 for k, v in dsecs.items()},
+           "chunk_ms": {"k3b": d3b_ms, "k3": d3_ms}, "launches": dl,
+           "pairs": dpairs, "limit_z": 4.0, "card": card}
+    emit(rec)
+    if not (dl["deferred_nee"] > 0 and dl["deferred_nee"] < dl["volpath_primal"]) \
+            or not all(np.isfinite(i).all() for i in dimgs.values()):
+        raise RuntimeError("dust-devil XML: the renders failed their checks")
+    if max(dpairs["k3b-no_nee"]["z"]) > 4.0:
+        raise RuntimeError(f"dust-devil XML: K3b is off the no-NEE estimate: "
+                           f"z = {dpairs['k3b-no_nee']['z']}")
+    out["dust"] = rec
+
+    kernel = {
+        "name": "deferred_nee", "route": "cuda", "source": "uivr_tpu_torch/ops/csrc/volpath_lane.cuh",
+        "replaces": "uivr_tpu/ops/volpath_step.py:606", "launches": launches["deferred_nee"],
+        "launches_per_train_step": first["counts"]["deferred_nee"],
+        "max_abs_err": out["chunk"]["max_abs_err"], "agreement": out["chunk"]["agreement"],
+        "ms": k3b_ms, "ms_k3": k3_ms, "plain_ms": out["chunk"]["plain_ms"],
+        "bound_ms": b_ms, "bound_by": b_by, "gather_bound_ms": g_ms, "library_ms": None,
+        "shape": f"volpath_primal with K3b, {co.shape[0]} rays, janga-smoke XML sensor 0 "
+                 "(2,097,152-texel map, 2,048-texel proxy)",
+        "dust_devil_4k": {"ms": d3b_ms, "ms_k3": d3_ms, "shape": f"{dco.shape[0]} rays"},
+        **counts}
+    return kernel, out
 
 
 def main():
@@ -1002,7 +1440,8 @@ def main():
         bad = not all(same.values())
         if need is not None:
             t0 = time.perf_counter()
-            Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True)
+            Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True,
+                                                    deferred=True)
             torch.cuda.synchronize()
             p_ms = (time.perf_counter() - t0) * 1e3
             agree = lane_agreement(Lk, Lp)
@@ -1100,7 +1539,8 @@ def main():
     k_ms, k_off_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed0),
                                lambda: vs.sample_primal_kernel(cfg, no_cls(sc), o, d, seed0), 3)
     t0 = time.perf_counter()
-    Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed0, return_stats=True)
+    Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed0, return_stats=True,
+                                            deferred=True)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
     steps = int(sk["steps"].sum())
@@ -1169,8 +1609,9 @@ def main():
     dust_check = check_step(card, vs, "dust-devil truth", dust_truth)
     phase_cli(card, out_dir)
     phase_fd(card, vs, out_dir)
+    k3b, _ = phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk)
     for k in kernels:
-        k["launches_per_train_step"] = train["launches"].get(k["name"], 0) / 3
+        k["launches_per_train_step"] = train["iterations"][0]["launches"].get(k["name"], 0)
     kernels += training_kernels(train, truth, check)
 
     # ---------------------------------------------------------- 10. kernels
@@ -1191,12 +1632,14 @@ def main():
          "source": "uivr_tpu_torch/ops/csrc/volpath_lane.cuh",
          "replaces": "uivr_tpu/ops/volpath_step.py:892",
          "launches": train["launches"]["subcell_classification"],
-         "launches_per_train_step": train["launches"]["subcell_classification"] / 3,
+         "launches_per_train_step":
+             train["iterations"][0]["launches"]["subcell_classification"],
          "max_abs_err": kernels[1]["max_abs_err"], "ms": k_ms, "ms_cls_off": k_off_ms,
          "plain_ms": p_ms, "bound_ms": k_bound, "bound_by": k_by, "library_ms": None,
          "gather_bound_ms": gather_ms, "gather_bound_ms_cls_off": gather_off_ms,
          "shape": f"volpath_primal with K6, {n} rays, janga-smoke sensor 0",
          "walking_kernels_ms": walking, "counts": counts, "on_equals_off": True})
+    kernels.append(k3b)
     emit({"kernels": kernels, "card": card})
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise RuntimeError("a kernel timing is not finite")

@@ -33,6 +33,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_common import assert_lanes_agree, both_scenes, camera_rays, host_library
+from torch_common import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from uivr_tpu.config import cube_test_scene, smoke_scene
 from uivr_tpu.core import grids as jgrids
 from uivr_tpu.core.rng import make_sampler as j_make_sampler

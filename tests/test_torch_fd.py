@@ -2,8 +2,8 @@
 
 - ``validation.fd_gradients`` of both packages on one deterministic loss
   of numpy-seeded grids: forward and central differences agree;
-- ``python -m uivr_tpu_torch.cli.fd --device cpu`` with the arguments of
-  ``tests/test_cli.py::test_fd_cli`` writes the files and summary keys the
+- ``python -m uivr_tpu_torch.cli.fd --device cpu`` (tiny-cube, the albedo
+  grid, 3x3 pixels at 1 spp) writes the files and summary keys the
   reference CLI writes (``adjoint_<key>.npy``, ``fd_<key>.npy``,
   ``summary.json`` with ``corr``, ``median_rel_err``, ``max_rel_err``),
   with finite values.  The reference CLI itself runs in test_cli.py.
@@ -58,8 +58,11 @@ def test_fd_gradients_match_jax(central):
 def test_fd_cli_on_cpu(tmp_path):
     from uivr_tpu_torch.cli import fd as fd_cli
     out = str(tmp_path / "fd")
+    # 82 plain-path renders (81 albedo entries and the base) of 9 rays each:
+    # this checks the entry point's files and keys; the FD values' accuracy
+    # is test_fd_gradients_match_jax's and the card's
     summary = fd_cli.main(["--scene", "tiny-cube", "--integrator", "volpathsimple-basic",
-                           "--spp", "8", "--res", "4", "--eps", "0.02",
+                           "--spp", "1", "--res", "3", "--eps", "0.02",
                            "--keys", "albedo", "--out", out, "--device", "cpu"])
     assert sorted(os.listdir(out)) == ["adjoint_albedo.npy", "fd_albedo.npy", "summary.json"]
     with open(os.path.join(out, "summary.json")) as f:

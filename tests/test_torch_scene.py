@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from torch_common import both_scenes, bundle_to_numpy
@@ -43,25 +44,22 @@ def test_envmap_queries(smoke):
     jsc, _, tsc = smoke
     rs = np.random.RandomState(1)
     u2 = rs.rand(4096, 2).astype(np.float32)
-    jd, jp, jw = (np.asarray(x) for x in jsc.emitter.sample_direction(jnp.asarray(u2)))
-    td, tp, tw = (x.numpy() for x in tsc.emitter.sample_direction(torch.from_numpy(u2)))
-    np.testing.assert_allclose(td, jd, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(tp, jp, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(tw, jw, rtol=1e-5, atol=1e-5)
     d = rs.randn(4096, 3)
     d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    np.testing.assert_allclose(tsc.emitter.pdf_direction(torch.from_numpy(d)).numpy(),
-                               np.asarray(jsc.emitter.pdf_direction(jnp.asarray(d))),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(tsc.emitter.eval(torch.from_numpy(d)).numpy(),
-                               np.asarray(jsc.emitter.eval(jnp.asarray(d))),
-                               rtol=1e-5, atol=1e-5)
+    em = jsc.emitter
+    # the reference's queries in one compiled program
+    ref = jax.jit(lambda u, w: (*em.sample_direction(u), em.pdf_direction(w), em.eval(w)))(
+        jnp.asarray(u2), jnp.asarray(d))
+    te, tw = tsc.emitter, torch.from_numpy(d)
+    got = (*te.sample_direction(torch.from_numpy(u2)), te.pdf_direction(tw), te.eval(tw))
+    for r, g in zip(ref, got):     # direction, pdf, weight; pdf, radiance
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
 
 
 def test_constant_emitter_queries():
     jsc, _, tsc = both_scenes(j_cube(resx=16, resy=16))
     u2 = np.random.RandomState(2).rand(1024, 2).astype(np.float32)
-    for j, t in zip(jsc.emitter.sample_direction(jnp.asarray(u2)),
+    for j, t in zip(jax.jit(jsc.emitter.sample_direction)(jnp.asarray(u2)),
                     tsc.emitter.sample_direction(torch.from_numpy(u2))):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-6, atol=1e-6)
 
@@ -72,16 +70,20 @@ def test_phase_sample_and_eval(g):
     wi = rs.randn(2048, 3)
     wi = (wi / np.linalg.norm(wi, axis=1, keepdims=True)).astype(np.float32)
     u1, u2 = (rs.rand(2048).astype(np.float32) for _ in range(2))
-    jwo, jpdf = jphase.phase_sample(jnp.float32(g), jnp.asarray(wi), jnp.asarray(u1),
-                                    jnp.asarray(u2))
+
+    @jax.jit      # the reference's sample and eval in one compiled program
+    def ref(w, a, b):
+        wo, pdf = jphase.phase_sample(jnp.float32(g), w, a, b)
+        return wo, pdf, jphase.phase_eval(jnp.float32(g), w, wo)
+
+    jwo, jpdf, jval = ref(jnp.asarray(wi), jnp.asarray(u1), jnp.asarray(u2))
     two, tpdf = tphase.phase_sample(float(np.float32(g)), torch.from_numpy(wi),
                                     torch.from_numpy(u1), torch.from_numpy(u2))
     np.testing.assert_allclose(two.numpy(), np.asarray(jwo), rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(tpdf.numpy(), np.asarray(jpdf), rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(
         tphase.phase_eval(float(np.float32(g)), torch.from_numpy(wi), two).numpy(),
-        np.asarray(jphase.phase_eval(jnp.float32(g), jnp.asarray(wi), jwo)),
-        rtol=1e-5, atol=1e-6)
+        np.asarray(jval), rtol=1e-5, atol=1e-6)
 
 
 def test_sample_rays_exact(smoke):
@@ -159,7 +161,9 @@ def test_scene_preset_builds_stand_in_and_refuses_xml(tmp_path, monkeypatch):
     b = small.build(device="cpu")       # XML present, its assets absent
     assert b.cameras.n_sensors == 62 and b.sensors is None and b.film_size == (180, 155)
     (tmp_path / "janga-smoke" / "textures" / "gamrig_2k.hdr").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="XML scenes: later slice"):
+    # with its assets present the XML is loaded, and this one has no sensor
+    # (tests/test_torch_xml.py loads real ones)
+    with pytest.raises(ValueError, match="no perspective sensors"):
         small.build(device="cpu")
 
 

@@ -6,6 +6,7 @@ numpy seed, and hold the port's primal estimate against the JAX flat
 engine's with the rule the Pallas kernel tests use.
 """
 import numpy as np
+import pytest
 import torch
 
 import jax.numpy as jnp
@@ -16,6 +17,18 @@ from uivr_tpu.scene.emitters import ConstantEmitter as JConstantEmitter
 from uivr_tpu_torch.config import bundle_from_numpy
 from uivr_tpu_torch.scene.medium import finalize_medium as t_finalize_medium
 from uivr_tpu_torch.scene.scene import Scene as TScene
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Imported into a test module, runs its torch ops on one thread: its
+    twins step a few thousand lanes per op, where torch's intra-op threads
+    cost up to twice the CPU time for about the same wall time, and the
+    test workers share the machine's cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def bundle_to_numpy(b) -> dict:

@@ -1,18 +1,22 @@
 """Config registries: scene and integrator presets.
 
 Port of ``uivr_tpu/config/registry.py`` with the same names and values.
-Scenes build through their procedural ``builder``; a preset whose Mitsuba
-XML scene and assets are present raises, since XML loading is not ported.
+A preset with a Mitsuba XML scene loads it (``config/xml_scene.py``) when
+the XML file and every asset it names are under ``$UIVR_SCENE_DIR``
+(default ``./scenes``); without the assets (a checkout holds the XML files
+only) it builds through its procedural ``builder``.
 """
 from __future__ import annotations
 
 import os
+import xml.etree.ElementTree as ET
 from copy import deepcopy
 from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional
 
 from ..integrators.volpathsimple import VolpathConfig
 from .scenes import SceneBundle, cube_test_scene, smoke_scene
+from .xml_scene import load_xml_scene, xml_variables
 
 
 # ---------------------------------------------------------------- integrators
@@ -100,30 +104,63 @@ class ScenePreset:
             b.preview_sensors = tuple(self.preview_sensors)
         return b
 
-    def _xml_assets_present(self) -> bool:
-        """The XML scene and the asset files its scene vars name exist
-        under $UIVR_SCENE_DIR (default ./scenes).  A checkout holds the XML
-        files only; the assets are generated or downloaded."""
-        if not self.scene_xml:
+    @staticmethod
+    def _xml_path(xml: str) -> str:
+        return os.path.join(os.environ.get("UIVR_SCENE_DIR", "scenes"), xml)
+
+    def _xml_ready(self, xml: Optional[str], variables: Dict) -> bool:
+        """The XML scene ``xml`` and every asset its variables name
+        (``*_filename``, the file's defaults included) exist under
+        $UIVR_SCENE_DIR."""
+        if not xml or not os.path.exists(self._xml_path(xml)):
             return False
-        root = os.environ.get("UIVR_SCENE_DIR", "scenes")
-        path = os.path.join(root, self.scene_xml)
-        assets = [v for k, v in self.scene_vars.items() if k.endswith("_filename")]
-        return os.path.exists(path) and all(
-            os.path.exists(os.path.join(os.path.dirname(path), a)) for a in assets)
+        path = self._xml_path(xml)
+        names = xml_variables(ET.parse(path).getroot(), variables)
+        return all(os.path.exists(os.path.join(os.path.dirname(path), v))
+                   for k, v in names.items() if k.endswith("_filename"))
+
+    def _load_xml(self, xml: str, variables: Dict, device, **kw) -> SceneBundle:
+        b = load_xml_scene(self._xml_path(xml), variables=variables,
+                           max_density=self.max_density, device=device, **kw)
+        b.max_depth = self.max_depth
+        return self._apply_rig(b)
 
     def build(self, device=None) -> SceneBundle:
-        """Training scene from the procedural stand-in ``builder``."""
-        if self._xml_assets_present():
-            raise NotImplementedError("XML scenes: later slice")
+        """Training scene: the XML scene with the normal scene vars and the
+        ``start_from_value`` start grids where it and its assets exist,
+        else the procedural stand-in ``builder``."""
+        if self._xml_ready(self.scene_xml, self.scene_vars):
+            return self._load_xml(self.scene_xml, self.scene_vars, device,
+                                  start_from_value=self.start_from_value)
         b = self.builder(**self.builder_kwargs, device=device)
         b.max_depth = self.max_depth
         b.max_density = self.max_density
         return self._apply_rig(b)
 
     def build_ref(self, device=None) -> SceneBundle:
-        """Reference-render scene: the procedural stand-in's grids are the
-        ground truth."""
+        """Reference-render scene: the ground-truth volumes through
+        ``ref_scene_vars`` and the dedicated reference XML where the scene
+        has one; the procedural stand-in's grids are the ground truth."""
+        xml = self.ref_xml or self.scene_xml
+        if xml:
+            path = self._xml_path(xml)
+            if (self.ref_xml and not os.path.exists(path)
+                    and self._xml_ready(self.scene_xml, self.scene_vars)):
+                # references of the training scene's start grids would be
+                # meaningless
+                raise FileNotFoundError(
+                    f"{self.name}: reference scene {path} is missing while "
+                    f"{self.scene_xml} exists; references rendered from the "
+                    "training scene would be meaningless")
+            if os.path.exists(path) and self.ref_xml and self.ref_integrator == "path":
+                raise NotImplementedError(
+                    f"{self.name}: the reference renders its reference images "
+                    "from a SURFACE scene with a 'path' integrator, which a "
+                    "volumes-only tracer cannot; provide precomputed references")
+            vars_ = self.ref_scene_vars if self.ref_scene_vars is not None \
+                else self.scene_vars
+            if self._xml_ready(xml, vars_):
+                return self._load_xml(xml, vars_, device)
         return self.build(device=device)
 
 

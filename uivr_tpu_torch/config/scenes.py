@@ -16,7 +16,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..scene.camera import Cameras, look_at, make_cameras, orbit_cameras
-from ..scene.emitters import ConstantEmitter, EnvmapEmitter, make_envmap
+from ..scene.emitters import ConstantEmitter, EnvmapEmitter, make_envmap, nee_proxy
 from ..scene.medium import MediumConfig, MediumParams
 from ..scene.scene import Emitter
 
@@ -164,7 +164,10 @@ def bundle_from_numpy(d: dict, device=None) -> SceneBundle:
     ``tan_half_fov``, ``aspect`` (cameras); ``to_world``; ``film_size``;
     optional ``max_depth``; and either ``radiance`` (constant emitter) or
     ``env_data``, ``env_alias_tab``, ``env_flat_data``, ``env_row_pmf``,
-    ``env_cond_pmf``, ``env_to_world`` (envmap emitter)."""
+    ``env_cond_pmf``, ``env_to_world`` (envmap emitter).  An envmap's
+    coarse NEE proxy is built from ``env_data`` as ``make_envmap`` builds
+    it (maps above 8192 texels); it equals the JAX bundle's
+    ``emitter.nee`` bit for bit."""
     device = resolve_device(device)
 
     def t(x):   # a copy: the caller's arrays may be read-only views
@@ -186,10 +189,12 @@ def bundle_from_numpy(d: dict, device=None) -> SceneBundle:
     if "radiance" in d:
         emitter = ConstantEmitter(radiance=t(d["radiance"]))
     else:
+        nee = nee_proxy(np.asarray(d["env_data"], np.float32),
+                        np.asarray(d["env_to_world"], np.float32), device=device)
         emitter = EnvmapEmitter(
             data=t(d["env_data"]), row_pmf=t(d["env_row_pmf"]),
             cond_pmf=t(d["env_cond_pmf"]), alias_tab=t(d["env_alias_tab"]),
-            flat_data=t(d["env_flat_data"]), to_world=t(d["env_to_world"]))
+            flat_data=t(d["env_flat_data"]), to_world=t(d["env_to_world"]), nee=nee)
     cams = Cameras(cam_to_world=t(d["cam_to_world"]),
                    tan_half_fov=t(d["tan_half_fov"]), aspect=t(d["aspect"]))
     return SceneBundle(

@@ -102,16 +102,17 @@ def write_exr(path: str, image: np.ndarray, compression: str = "zip") -> None:
     n_chunks = len(chunks)
     offset = 8 + len(header) + 8 * n_chunks
     table = []
-    body = b""
+    body = []
     for y0, payload in chunks:
-        table.append(offset + len(body))
-        body += struct.pack("<2i", y0, len(payload)) + payload
+        table.append(offset)
+        body.append(struct.pack("<2i", y0, len(payload)) + payload)
+        offset += len(body[-1])
 
     with open(path, "wb") as f:
         f.write(struct.pack("<2i", _MAGIC, 2))
         f.write(header)
         f.write(struct.pack(f"<{n_chunks}q", *table))
-        f.write(body)
+        f.write(b"".join(body))
 
 
 def _parse_header(raw: bytes, pos: int):

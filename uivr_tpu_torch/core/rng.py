@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -33,10 +34,31 @@ def _as_u32(x):
     return int(x) & _M32
 
 
+def _tea_numpy(v0, v1, rounds: int):
+    """TEA on CPU tensors in numpy's wrapping uint32: the same bits as the
+    masked int64 loop below at less than half its per-call cost."""
+    a = np.asarray(v0.numpy() if isinstance(v0, torch.Tensor) else v0, np.uint32)
+    b = np.asarray(v1.numpy() if isinstance(v1, torch.Tensor) else v1, np.uint32)
+    k0, k1, k2, k3 = (np.uint32(k) for k in (_TEA_K0, _TEA_K1, _TEA_K2, _TEA_K3))
+    four, five = np.uint32(4), np.uint32(5)
+    s = 0
+    with np.errstate(over="ignore"):
+        for _ in range(rounds):
+            s = (s + _TEA_DELTA) & _M32
+            su = np.uint32(s)
+            a = a + (((b << four) + k0) ^ (b + su) ^ ((b >> five) + k1))
+            b = b + (((a << four) + k2) ^ (a + su) ^ ((a >> five) + k3))
+    return (torch.from_numpy(np.asarray(a, np.int64)),
+            torch.from_numpy(np.asarray(b, np.int64)))
+
+
 def tea_plain(v0, v1, rounds: int = 6):
     """TEA block mix of two uint32 values (Python ints or int64 tensors,
     broadcasting).  Returns masked values of the same kind."""
     v0, v1 = _as_u32(v0), _as_u32(v1)
+    tensors = [x for x in (v0, v1) if isinstance(x, torch.Tensor)]
+    if tensors and tensors[0].device.type == "cpu":
+        return _tea_numpy(v0, v1, rounds)
     s = 0
     for _ in range(rounds):
         s = (s + _TEA_DELTA) & _M32

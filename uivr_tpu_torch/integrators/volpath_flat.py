@@ -4,7 +4,13 @@ path-tracing kernels (``ops/csrc/volpath_primal.cu``,
 
 Port of ``uivr_tpu/integrators/volpath_flat.py`` (``_cell_step``,
 ``_init_carry``, ``_flat_step``, ``_finish``, ``sample_primal``,
-``sample_adjoint`` and ``_drt_backward_flat``).  Every lane advances one
+``sample_adjoint`` and ``_drt_backward_flat``), with the deferred-radiance
+NEE of the reference's step kernel (``deferred``, K3b): on an envmap with a
+coarse ``nee`` proxy, NEE samples the proxy and multiplies in the
+full-resolution radiance (``emitters.sample_deferred``), and escapes are
+weighed with the proxy's pdf.  The kernels take that mode whenever the
+emitter has a proxy; ``deferred=False`` (the default, the reference's flat
+engine) samples the full-resolution map.  Every lane advances one
 majorant-tracking step per iteration and switches between walk modes:
 
     MAIN    delta-track the camera/bounce ray to its next real collision
@@ -37,6 +43,7 @@ from ..core.rng import (_DRAW_ROUNDS, _M32, LaneSampler, _to_unit_float,
                         make_sampler, next_1d, next_2d, sample_tea_32, tea)
 from ..scene.gradients import (GradAccum, finalize_accum, init_accum,
                                scatter_sigma, scatter_sigma_albedo)
+from ..scene.emitters import sample_deferred
 from ..scene.medium import sigma_albedo_at
 from ..scene.phase import phase_eval, phase_sample
 from ..scene.scene import Scene
@@ -139,13 +146,19 @@ def _init_carry(scene: Scene, o, d, smp: LaneSampler,
         sh_tr=z1(), sh_base=z3(), smp=smp, steps=zi())
 
 
+def _nee_proxy(scene: Scene, deferred: bool):
+    """The coarse proxy NEE samples in deferred mode, or None."""
+    return getattr(scene.emitter, "nee", None) if deferred else None
+
+
 def _flat_step(cfg: VolpathConfig, scene: Scene, c: _FlatCarry,
-               rp_dim=None, rp_t=None):
+               rp_dim=None, rp_t=None, deferred: bool = False):
     """One tracking step for every lane of ``c``; returns the new carry and
     the step's events.  In the adjoint (``rp_dim`` given) REPLAY lanes walk
     the shadow ray again from ``rp_t`` with the draws at the restored
     counter ``rp_dim``, and a completed shadow walk neither adds its
-    contribution nor changes mode: the adjoint body does both."""
+    contribution nor changes mode: the adjoint body does both.
+    ``deferred``: NEE samples the emitter's proxy where it has one (K3b)."""
     m = scene.medium
     is_adj = rp_dim is not None
     mode = c.mode
@@ -251,14 +264,23 @@ def _flat_step(cfg: VolpathConfig, scene: Scene, c: _FlatCarry,
     if cfg.use_nee:
         u_e1, smp = lane_next_1d(smp, consume=scat)
         u_e2, smp = lane_next_1d(smp, consume=scat)
-        ds_d, ds_pdf, em_w = scene.emitter.sample_direction(
-            torch.stack([u_e1, u_e2], dim=-1))
+        u_e = torch.stack([u_e1, u_e2], dim=-1)
+        k3b = _nee_proxy(scene, deferred) is not None
+        if k3b:
+            ds_d, ds_pdf, inv_pdf, rad = sample_deferred(scene.emitter, u_e)
+        else:
+            ds_d, ds_pdf, em_w = scene.emitter.sample_direction(u_e)
         nee_ok = scat & (ds_pdf > 0.0)
         phv = phase_eval(m.phase_g, c.d_w, ds_d)   # incident direction
         wmis = mis_weight(ds_pdf, phv)
         sh_d_new = aabb.transform_dirs(m.world_to_local, ds_d)
         sh_tmax_new = _exit_dist(o_l, sh_d_new)
-        base_new = throughput * (phv * wmis)[:, None] * em_w
+        if k3b:
+            # 1/pdf first, then the radiance: two roundings, as the
+            # reference kernel's fix-up multiplies the radiance in later
+            base_new = throughput * (phv * wmis)[:, None] * inv_pdf[:, None] * rad
+        else:
+            base_new = throughput * (phv * wmis)[:, None] * em_w
 
         sh_d = torch.where(nee_ok[:, None], sh_d_new, c.sh_d)
         sh_tmax = torch.where(nee_ok, sh_tmax_new, c.sh_tmax)
@@ -287,13 +309,16 @@ def _flat_step(cfg: VolpathConfig, scene: Scene, c: _FlatCarry,
     return out, ev
 
 
-def _finish(cfg: VolpathConfig, scene: Scene, c: _FlatCarry) -> torch.Tensor:
-    """Emitter contribution on escape, MIS-weighted against NEE."""
+def _finish(cfg: VolpathConfig, scene: Scene, c: _FlatCarry,
+            nee_emitter=None) -> torch.Tensor:
+    """Emitter contribution on escape, MIS-weighted against NEE.
+    ``nee_emitter``: the emitter whose pdf NEE sampled (the proxy in
+    deferred mode); the radiance is the full-resolution emitter's."""
     active_e = c.escaped
     if cfg.hide_emitters:
         active_e = active_e & ~(c.depth <= 0)
     if cfg.use_nee:
-        epdf = scene.emitter.pdf_direction(c.d_w)
+        epdf = (nee_emitter or scene.emitter).pdf_direction(c.d_w)
         epdf = torch.where(c.has_scattered, epdf, 0.0)
         w = mis_weight(c.last_pdf, epdf)[:, None]
         contrib = c.throughput * w * scene.emitter.eval(c.d_w)
@@ -349,10 +374,12 @@ def _lane_sampler(seed, n: int, dev, lane0: int) -> LaneSampler:
 
 def sample_primal(cfg: VolpathConfig, scene: Scene, o, d, seed,
                   return_stats: bool = False,
-                  path_state: Optional[PathState] = None, lane0: int = 0):
+                  path_state: Optional[PathState] = None, lane0: int = 0,
+                  deferred: bool = False):
     """Plain primal estimate of world rays ``o``, ``d`` (n, 3), or of the
     paths resumed from ``path_state`` (``o``, ``d`` unused then); the rays
-    are keyed as ray ids ``lane0`` onwards.
+    are keyed as ray ids ``lane0`` onwards.  ``deferred``: the kernels'
+    deferred-radiance NEE where the emitter has a proxy.
 
     Returns ``(L (n,3), escaped (n,))`` and, with ``return_stats``, a dict
     of per-lane ``dim`` (draws consumed), ``steps`` and ``depth``."""
@@ -360,10 +387,10 @@ def sample_primal(cfg: VolpathConfig, scene: Scene, o, d, seed,
     n = (o if path_state is None else path_state.o_l).shape[0]
     dev = (o if path_state is None else path_state.o_l).device
     full = _init_carry(scene, o, d, _lane_sampler(seed, n, dev, lane0), path_state)
-    full = _run_lanes(lambda c: _flat_step(cfg, scene, c)[0], full,
+    full = _run_lanes(lambda c: _flat_step(cfg, scene, c, deferred=deferred)[0], full,
                       lambda c: (c.mode != DONE) & (c.steps < cfg.max_steps),
                       lambda c: c.mode)
-    L = _finish(cfg, scene, full)
+    L = _finish(cfg, scene, full, _nee_proxy(scene, deferred))
     if return_stats:
         return L, full.escaped, {"dim": full.smp.dim, "steps": full.steps,
                                  "depth": full.depth}
@@ -387,12 +414,12 @@ class _FlatAdjCarry(NamedTuple):
 
 
 def _adjoint_step(cfg: VolpathConfig, scene: Scene, acc: GradAccum,
-                  a: _FlatAdjCarry) -> _FlatAdjCarry:
+                  a: _FlatAdjCarry, deferred: bool = False) -> _FlatAdjCarry:
     """One step of the adjoint state machine (the body of the reference's
     ``sample_adjoint`` loop); scatters into ``acc`` in place."""
     m = scene.medium
     c, dL = a.c, a.dL
-    out, ev = _flat_step(cfg, scene, c, rp_dim=a.rp_dim, rp_t=a.rp_t)
+    out, ev = _flat_step(cfg, scene, c, rp_dim=a.rp_dim, rp_t=a.rp_t, deferred=deferred)
     alt = a.alt
     p, sig, alb = ev.p, ev.sig, ev.alb
 
@@ -468,9 +495,11 @@ def _adjoint_step(cfg: VolpathConfig, scene: Scene, acc: GradAccum,
 
 
 def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
-                 lane0: int = 0):
+                 lane0: int = 0, deferred: bool = False):
     """The adjoint's path-replay walk, without the delayed DRT term; the
-    rays are keyed as ray ids ``lane0`` onwards.
+    rays are keyed as ray ids ``lane0`` onwards (``deferred`` as in
+    :func:`sample_primal`: the completed shadow walks then carry the
+    full-resolution radiance, so their cotangents see complete weights).
 
     Returns ``(acc, res, stats)``: the gradient accumulator, the per-lane
     DRT reservoirs and per-lane ``dim`` (primary draws), ``alt_dim`` (alt
@@ -488,7 +517,7 @@ def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
         res=_reservoir_init(torch.zeros_like(c.o_l)))
     acc = init_accum(m, need_emission=False)
     max_iters = 3 * cfg.max_steps
-    full = _run_lanes(lambda a: _adjoint_step(cfg, scene, acc, a), full,
+    full = _run_lanes(lambda a: _adjoint_step(cfg, scene, acc, a, deferred), full,
                       lambda a: (a.c.mode != DONE) & (a.c.steps < max_iters),
                       lambda a: a.c.mode)
     stats = {"dim": full.c.smp.dim, "alt_dim": full.alt.dim,
@@ -497,20 +526,23 @@ def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
 
 
 def sample_adjoint(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
-                   state_in):
+                   state_in, deferred: bool = False):
     """Plain path-replay adjoint of world rays ``o``, ``d`` with per-ray
     adjoint radiance ``dL`` (n,3) and replayed primal radiance
-    ``state_in`` (n,3).  Returns MediumParams gradients (zero emission)."""
+    ``state_in`` (n,3); ``deferred`` as in :func:`sample_primal`.
+    Returns MediumParams gradients (zero emission)."""
     CALLS["volpath_adjoint"] += 1
-    acc, res, _ = adjoint_walk(cfg, scene, o, d, seed, dL, state_in)
+    acc, res, _ = adjoint_walk(cfg, scene, o, d, seed, dL, state_in,
+                               deferred=deferred)
     if cfg.use_drt and cfg.use_drt_subsampling:
         acc = _drt_backward_flat(cfg, scene, seed, res, _reservoir_get(res) * dL,
-                                 acc)
+                                 acc, deferred=deferred)
     return finalize_accum(acc, scene.medium)
 
 
 def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
-                       adjoint, acc: GradAccum, return_stats: bool = False):
+                       adjoint, acc: GradAccum, return_stats: bool = False,
+                       deferred: bool = False):
     """Delayed DRT on the reservoir vertices: a transmittance-proportional
     distance, a recursive detached Li (NEE + a resumed primal path) and the
     sigma/albedo cotangents there.  Its auxiliary draws come from the
@@ -519,7 +551,9 @@ def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
     ``return_stats`` also returns the walk's results, the trip maxima
     ``k_a`` (distance walk) and ``k_b`` (NEE transmittance), the NEE
     radiance, the resumed ``path_state`` and its radiance ``rec_L`` with
-    the resumed primal's ``rec_stats``."""
+    the resumed primal's ``rec_stats``.  ``deferred`` applies to the
+    resumed primal only: the term's own NEE samples the full-resolution
+    emitter, as the reference's does."""
     CALLS["volpath_drt"] += 1
     m = scene.medium
     n = res.o_l.shape[0]
@@ -554,7 +588,7 @@ def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
         last_pdf=torch.where(active, ph_pdf, 1.0))
     rec_seed, _ = sample_tea_32(seed, 0x7177)
     rec_Li, _, rec_stats = sample_primal(cfg, scene, None, None, rec_seed, True,
-                                         path_state=ps)
+                                         path_state=ps, deferred=deferred)
     Li = Li + rec_Li
 
     sig, alb = sigma_albedo_at(m, p)

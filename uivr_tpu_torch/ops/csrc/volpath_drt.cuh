@@ -128,7 +128,8 @@ __host__ __device__ inline void drt_nee_lane(const DrtParams& D, int64_t i) {
     const float u1 = wavefront_draw(D.drt_seed, dim0 + 1u, (uint32_t)i);
     float ds_pdf;
     V3 em_w;
-    const V3 ds_d = emitter_sample(P, u0, u1, ds_pdf, em_w);
+    const float* rad;   // stays null: the term's NEE samples at full resolution
+    const V3 ds_d = emitter_sample(P, u0, u1, ds_pdf, em_w, rad);
     if (ds_pdf > 0.0f) {
       const V3 p = load3(D.p, i);
       const V3 dln = xform_dir(P.w2l, 4, ds_d);

@@ -1,4 +1,4 @@
-// One lane of the volumetric path tracer (K2 + K3): the MAIN / SHADOW /
+// One lane of the volumetric path tracer (K2 + K3 + K3b): the MAIN / SHADOW /
 // DONE tracking state machine of uivr_tpu_torch/integrators/
 // volpath_flat.py, run to completion for one ray.  The loop is a template
 // on its hooks: PrimalHooks here give the primal estimate; AdjointHooks
@@ -12,7 +12,12 @@
 // chunk shuffles.  In front of the sigma fetch sits PRE's subcell
 // classification (K6, :892-907): MAIN and SHADOW candidates that a
 // per-subcell sigma bound decides skip the fetch; the draws and decisions
-// are those of the fetch, so classification changes no path.
+// are those of the fetch, so classification changes no path.  On an envmap
+// with a coarse proxy (nee_H > 0) NEE takes the reference's deferred-
+// radiance mode (K3b, :600-616 and _deferred_nee_fixup :1230): the
+// direction and pdf come from the proxy's alias table, the radiance from
+// the full-resolution texel the direction lands in, multiplied into the
+// shadow weight after 1/pdf; escapes weigh MIS with the proxy's pdf.
 //
 // The arithmetic repeats the plain twin operation for operation (see
 // uivr_tpu_torch/core/fmath.py): fmaf exactly where the twin fuses, float64
@@ -44,6 +49,10 @@ struct PrimalParams {
   const float* env_alias;    // (eH*eW, 4) [prob, alias, pmf_self, pmf_alias]
   const float* env_row_pmf;  // (eH,)
   const float* env_cond_pmf; // (eH, eW)
+  // K3b: the coarse proxy's tables, or null (nee_H == 0: full resolution)
+  const float* nee_alias;    // (nH*nW, 4)
+  const float* nee_row_pmf;  // (nH,)
+  const float* nee_cond_pmf; // (nH, nW)
   // PathState entry (volpath_primal_state_kernel): lanes resume from these
   const uint8_t* ps_active;  // (n,)
   const int32_t* ps_depth;   // (n,)
@@ -56,7 +65,7 @@ struct PrimalParams {
   const float* sub;
   int32_t* cls_counts;       // (n, kClsCounters) K6 counters, or null
   int64_t n;
-  int32_t D, H, W, Dc, Hc, Wc, Ds, Hs, Ws, env_H, env_W;
+  int32_t D, H, W, Dc, Hc, Wc, Ds, Hs, Ws, env_H, env_W, nee_H, nee_W;
   int32_t emitter;           // 0 constant, 1 envmap
   int32_t max_depth, rr_depth, max_steps, draw_rounds;
   int32_t use_nee, hide_emitters;
@@ -234,23 +243,31 @@ __host__ __device__ inline V3 emitter_eval(const PrimalParams& P, V3 d) {
   return {r[0], r[1], r[2]};
 }
 
+// The pdf NEE samples with: the proxy's under K3b, else the map's own.
 __host__ __device__ inline float emitter_pdf(const PrimalParams& P, V3 d) {
   if (P.emitter == 0) return kInvFourPi;
-  const int H = P.env_H, W = P.env_W;
+  const bool proxy = P.nee_H > 0;
+  const int H = proxy ? P.nee_H : P.env_H, W = proxy ? P.nee_W : P.env_W;
+  const float* row_pmf = proxy ? P.nee_row_pmf : P.env_row_pmf;
+  const float* cond_pmf = proxy ? P.nee_cond_pmf : P.env_cond_pmf;
   float u, v;
   env_uv(P, d, u, v);
   int64_t col = (int64_t)(u * (float)W);
   int64_t row = (int64_t)(v * (float)H);
   col = col < 0 ? 0 : (col > W - 1 ? W - 1 : col);
   row = row < 0 ? 0 : (row > H - 1 ? H - 1 : row);
-  const float p_uv = ((P.env_row_pmf[row] * (float)H) * P.env_cond_pmf[row * W + col]) * (float)W;
+  const float p_uv = ((row_pmf[row] * (float)H) * cond_pmf[row * W + col]) * (float)W;
   const float sin_theta = sin_r(clampf(v, 1e-4f, 0.9999f) * kPi);
   return p_uv / (kTwoPiSq * sin_theta);
 }
 
-// direction, solid-angle pdf and radiance / pdf of an emitter sample
+// Direction, solid-angle pdf and weight of an emitter sample.  The weight
+// is radiance / pdf, except under K3b (rad set): then it is 1/pdf, and the
+// caller multiplies the full-resolution radiance rad[0..2] in after it.
 __host__ __device__ inline V3 emitter_sample(const PrimalParams& P, float u0,
-                                             float u1, float& pdf, V3& weight) {
+                                             float u1, float& pdf, V3& weight,
+                                             const float*& rad) {
+  rad = nullptr;
   if (P.emitter == 0) {
     const float z = 1.0f - 2.0f * u0;
     const float r = sqrt_r(fmaxf(fmaf(-z, z, 1.0f), 0.0f));
@@ -259,13 +276,15 @@ __host__ __device__ inline V3 emitter_sample(const PrimalParams& P, float u0,
     weight = {P.const_weight[0], P.const_weight[1], P.const_weight[2]};
     return {r * cos_r(phi), z, r * sin_r(phi)};
   }
-  const int64_t H = P.env_H, W = P.env_W, N = H * W;
+  const bool proxy = P.nee_H > 0;
+  const int64_t H = proxy ? P.nee_H : P.env_H, W = proxy ? P.nee_W : P.env_W;
+  const int64_t N = H * W;
   const float scaled = u0 * (float)N;
   int64_t slot = (int64_t)scaled;
   slot = slot < 0 ? 0 : (slot > N - 1 ? N - 1 : slot);
   const float frac = scaled - (float)slot;
   float tab[4];
-  load4(P.env_alias + slot * 4, tab);
+  load4((proxy ? P.nee_alias : P.env_alias) + slot * 4, tab);
   const bool keep = frac < tab[0];
   const int64_t texel = keep ? slot : (int64_t)tab[1];
   const float pmf = keep ? tab[2] : tab[3];
@@ -281,8 +300,16 @@ __host__ __device__ inline V3 emitter_sample(const PrimalParams& P, float u0,
   const V3 d = xform_dir(P.env_to_world, 3, dl);
   const float sin_theta = sin_r(clampf(v, 1e-4f, 0.9999f) * kPi);
   pdf = (pmf * (float)N) / (kTwoPiSq * sin_theta);
-  const float* val = P.env_data + texel * 3;
   const float inv = fmaxf(pdf, 1e-20f);
+  if (proxy) {   // K3b: the full-resolution texel under (u, v)
+    const int64_t fh = P.env_H, fw = P.env_W;
+    const int64_t cf = (int64_t)(u * (float)fw), rf = (int64_t)(v * (float)fh);
+    rad = P.env_data + ((rf < fh - 1 ? rf : fh - 1) * fw + (cf < fw - 1 ? cf : fw - 1)) * 3;
+    const float w = pdf > 0.0f ? 1.0f / inv : 0.0f;
+    weight = {w, w, w};
+    return d;
+  }
+  const float* val = P.env_data + texel * 3;
   weight = pdf > 0.0f ? V3{val[0] / inv, val[1] / inv, val[2] / inv} : V3{0.0f, 0.0f, 0.0f};
   return d;
 }
@@ -600,7 +627,8 @@ __host__ __device__ inline void trace_lane(const PrimalParams& P, LaneState& s,
       const float u_e2 = s.rng.next(true);
       float ds_pdf;
       V3 em_w;
-      const V3 ds_d = emitter_sample(P, u_e1, u_e2, ds_pdf, em_w);
+      const float* rad;
+      const V3 ds_d = emitter_sample(P, u_e1, u_e2, ds_pdf, em_w, rad);
       s.post_mode = resume;
       if (ds_pdf > 0.0f) {
         const float phv = phase_eval(P.phase_g, d_in, ds_d);
@@ -609,6 +637,7 @@ __host__ __device__ inline void trace_lane(const PrimalParams& P, LaneState& s,
         s.sh_tmax = exit_dist(s.o, s.sh_d);
         s.sh_base = {(s.thr.x * k) * em_w.x, (s.thr.y * k) * em_w.y,
                      (s.thr.z * k) * em_w.z};
+        if (rad) s.sh_base = {s.sh_base.x * rad[0], s.sh_base.y * rad[1], s.sh_base.z * rad[2]};
         s.sh_t = 0.0f;
         s.sh_tr = 1.0f;
         s.mode = SHADOW;
@@ -622,7 +651,8 @@ __host__ __device__ inline void trace_lane(const PrimalParams& P, LaneState& s,
   }
 }
 
-// _finish: emitter radiance on escape, MIS-weighted against NEE
+// _finish: emitter radiance on escape, MIS-weighted against NEE (with the
+// pdf NEE sampled: the proxy's under K3b); the radiance is full-resolution
 __host__ __device__ inline V3 finish_radiance(const PrimalParams& P,
                                               const LaneState& s) {
   V3 L = s.result;

@@ -12,7 +12,8 @@ The CUDA sources live in ``csrc/``:
                           to completion per ray (K5's keying), a template on
                           its hooks; world-ray and PathState entries; the
                           subcell classification in front of the sigma
-                          fetch (K6)
+                          fetch (K6); deferred-radiance NEE from an
+                          envmap's coarse proxy (K3b)
 - ``volpath_adjoint.cuh`` the adjoint hooks: REPLAY walk, PRB and
                           transmittance cotangents, DRT reservoir (K4, K5)
 - ``volpath_drt.cuh``     the delayed DRT term's lanes
@@ -25,8 +26,10 @@ the first use starts all missing builds at once, and the libraries are
 loaded with ``ctypes``.  Each wrapper launches on PyTorch's current stream
 and counts its launches in :data:`LAUNCHES`.  On ``cpu`` tensors a wrapper
 runs the kernel's plain version instead (``core/rng.tea_plain`` and the
-twins in ``integrators/volpath_flat.py``); on ``cuda`` tensors it launches
-the kernel or raises.
+twins in ``integrators/volpath_flat.py``, in their deferred mode: the
+walking kernels take K3b whenever the envmap has a proxy, as the
+reference's ``_em_dims`` decides); on ``cuda`` tensors it launches the
+kernel or raises.
 """
 from __future__ import annotations
 
@@ -50,11 +53,12 @@ from ..scene.scene import Scene
 
 # kernel launches, by kernel, since the process started (or a caller reset);
 # "subcell_classification" counts the walking kernels' launches that ran K6
-# (their medium had a subcell table)
+# (their medium had a subcell table), "deferred_nee" those that ran K3b
+# (their envmap had a coarse proxy)
 LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_adjoint": 0, "volpath_drt_walk": 0, "volpath_drt_nee": 0,
             "volpath_drt_phase": 0, "volpath_drt_scatter": 0,
-            "subcell_classification": 0}
+            "subcell_classification": 0, "deferred_nee": 0}
 # K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
 # candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
 # events, of which classified, classified SHADOW events, sigma fetches
@@ -137,11 +141,12 @@ class PrimalParams(ctypes.Structure):
         [(f, ctypes.c_void_p) for f in (
             "o", "d", "L", "escaped", "dims", "steps", "grid", "majorant",
             "env_data", "env_alias", "env_row_pmf", "env_cond_pmf",
-            "ps_active", "ps_depth", "ps_o", "ps_d_l", "ps_d_w", "ps_maxt",
-            "ps_last_pdf", "sub", "cls_counts")]
+            "nee_alias", "nee_row_pmf", "nee_cond_pmf", "ps_active", "ps_depth",
+            "ps_o", "ps_d_l", "ps_d_w", "ps_maxt", "ps_last_pdf", "sub", "cls_counts")]
         + [("n", ctypes.c_int64)]
         + [(f, ctypes.c_int32) for f in (
-            "D", "H", "W", "Dc", "Hc", "Wc", "Ds", "Hs", "Ws", "env_H", "env_W", "emitter",
+            "D", "H", "W", "Dc", "Hc", "Wc", "Ds", "Hs", "Ws", "env_H", "env_W",
+            "nee_H", "nee_W", "emitter",
             "max_depth", "rr_depth", "max_steps", "draw_rounds", "use_nee",
             "hide_emitters")]
         + [("seed", ctypes.c_uint32)]
@@ -217,11 +222,12 @@ def _load(name: str = "primal"):
     return _libs[name]
 
 
-def _launch(key: str, launcher, *args, classified: bool = False) -> None:
+def _launch(key: str, launcher, *args, classified: bool = False,
+            deferred: bool = False) -> None:
     """Call the ``extern "C"`` launcher of kernel ``key`` (it returns a CUDA
     error code), raise on failure and count the launch (also as a K6 launch
-    when ``classified``).  With :data:`TIMINGS` a list, also record CUDA
-    events around it."""
+    when ``classified``, as a K3b launch when ``deferred``).  With
+    :data:`TIMINGS` a list, also record CUDA events around it."""
     ev = None
     if TIMINGS is not None:
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -233,6 +239,8 @@ def _launch(key: str, launcher, *args, classified: bool = False) -> None:
     LAUNCHES[key] += 1
     if classified:
         LAUNCHES["subcell_classification"] += 1
+    if deferred:
+        LAUNCHES["deferred_nee"] += 1
     if ev is not None:
         ev[1].record()
         TIMINGS.append((key, ev[0], ev[1]))
@@ -254,11 +262,15 @@ def _need(t: torch.Tensor, name: str, device, dtype=torch.float32,
 
 def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
                   escaped=None, dims=None, steps=None, path_state=None,
-                  n: int = None, device=None, cls_counts=None) -> PrimalParams:
+                  n: int = None, device=None, cls_counts=None,
+                  deferred: bool = True) -> PrimalParams:
     """Fill the kernels' common parameter block, checking every tensor it
     names.  The rays are ``o``, ``d`` (n, 3) or ``path_state``; a block
     with neither (the delayed DRT term's) gives ``n`` and ``device``.  The
-    medium's subcell table (K6) goes in when it has one."""
+    medium's subcell table (K6) goes in when it has one, and with
+    ``deferred`` the envmap's coarse proxy (K3b) when it has one: the
+    walking kernels then sample NEE from the proxy (the reference's
+    ``_em_dims``: ``(fh, fw)`` are the map's own dims)."""
     if path_state is not None:
         n, device = path_state.o_l.shape[0], path_state.o_l.device
     elif o is not None:
@@ -314,6 +326,13 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
         p.env_row_pmf = _need(em.row_pmf, "row pmf", dev, shape=(eH,))
         p.env_cond_pmf = _need(em.cond_pmf, "conditional pmf", dev, shape=(eH, eW))
         p.env_to_world[:] = em.to_world.reshape(-1).tolist()
+        if deferred and em.nee is not None:
+            c = em.nee
+            cH, cW = c.data.shape[:2]
+            p.nee_H, p.nee_W = cH, cW
+            p.nee_alias = _need(c.alias_tab, "proxy alias table", dev, shape=(cH * cW, 4))
+            p.nee_row_pmf = _need(c.row_pmf, "proxy row pmf", dev, shape=(cH,))
+            p.nee_cond_pmf = _need(c.cond_pmf, "proxy conditional pmf", dev, shape=(cH, cW))
     else:
         raise TypeError(f"unsupported emitter {type(em).__name__}")
     p.max_depth, p.rr_depth, p.max_steps = cfg.max_depth, cfg.rr_depth, cfg.max_steps
@@ -346,13 +365,13 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     per-lane ``dim`` (draws consumed) and ``steps``, like the plain twin;
     the kernel adds ``cls``, K6's per-lane counters (n, 5) int32 in the
     order of :data:`CLS_COUNTERS`.
-    On ``cpu`` tensors this is the plain twin; on ``cuda`` tensors it
-    launches ``volpath_primal_kernel`` (``volpath_primal_state_kernel``
-    with a path state)."""
+    On ``cpu`` tensors this is the plain twin (deferred mode); on ``cuda``
+    tensors it launches ``volpath_primal_kernel``
+    (``volpath_primal_state_kernel`` with a path state)."""
     ref = o if path_state is None else path_state.o_l
     if not ref.is_cuda:
         return volpath_flat.sample_primal(cfg, scene, o, d, seed, return_stats,
-                                          path_state=path_state)
+                                          path_state=path_state, deferred=True)
     n, dev = ref.shape[0], ref.device
     L = torch.empty((n, 3), dtype=torch.float32, device=dev)
     escaped = torch.empty((n,), dtype=torch.bool, device=dev)
@@ -364,13 +383,13 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     params = primal_params(cfg, scene, o, d, seed, L, escaped, dims, steps,
                            path_state=path_state, cls_counts=cls)
     lib = _load("primal")
-    cls_on = params.Ds > 0
+    flags = dict(classified=params.Ds > 0, deferred=params.nee_H > 0)
     if path_state is None:
         _launch("volpath_primal", lib.volpath_primal_launch, ctypes.byref(params),
-                _stream(dev), classified=cls_on)
+                _stream(dev), **flags)
     else:
         _launch("volpath_primal_state", lib.volpath_primal_state_launch,
-                ctypes.byref(params), _stream(dev), classified=cls_on)
+                ctypes.byref(params), _stream(dev), **flags)
     if return_stats:
         return L, escaped, {"dim": _u32(dims), "steps": steps, "cls": cls}
     return L, escaped
@@ -431,11 +450,12 @@ def adjoint_walk_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
     ``volpath_adjoint_kernel``, which adds into a zero accumulator with
     atomics."""
     if not o.is_cuda:
-        return volpath_flat.adjoint_walk(cfg, scene, o, d, seed, dL, state_in)
+        return volpath_flat.adjoint_walk(cfg, scene, o, d, seed, dL, state_in,
+                                         deferred=True)
     acc = init_accum(scene.medium, need_emission=False)
     a, res, stats = adjoint_params(cfg, scene, o, d, seed, dL, state_in, acc)
     _launch("volpath_adjoint", _load("adjoint").volpath_adjoint_launch, ctypes.byref(a),
-            _stream(o.device), classified=a.P.Ds > 0)
+            _stream(o.device), classified=a.P.Ds > 0, deferred=a.P.nee_H > 0)
     return acc, res, {k: _u32(v) if k in ("dim", "alt_dim") else v
                       for k, v in stats.items()}
 
@@ -460,7 +480,9 @@ def drt_params(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
                    last_pdf=f(n))
     counts = torch.zeros((2,), dtype=torch.int32, device=dev)
     D = DrtParams()
-    D.P = primal_params(cfg, scene, None, None, 0, n=n, device=dev)
+    # the term's own NEE samples the full-resolution map, as the
+    # reference's volpathsimple._nee_primal does; its resumed primal takes K3b
+    D.P = primal_params(cfg, scene, None, None, 0, n=n, device=dev, deferred=False)
     D.res_o = _need(res.o_l, "reservoir o_l", dev, shape=(n, 3))
     D.res_d_l = _need(res.d_l, "reservoir d_l", dev, shape=(n, 3))
     D.res_d_w = _need(res.d_w, "reservoir d_w", dev, shape=(n, 3))
@@ -490,7 +512,7 @@ def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
     device), with the per-lane walk lengths ``trips_a`` and ``trips_b``."""
     if not res.o_l.is_cuda:
         return volpath_flat._drt_backward_flat(cfg, scene, seed, res, adjoint, acc,
-                                               return_stats)
+                                               return_stats, deferred=True)
     dev = res.o_l.device
     D, out, ps, counts = drt_params(cfg, scene, seed, res, adjoint, acc)
     lib = _load("drt")
@@ -524,7 +546,8 @@ def sample_adjoint_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
     emission).  On ``cuda`` tensors it runs ``volpath_adjoint_kernel`` and
     the DRT kernels."""
     if not o.is_cuda:
-        return volpath_flat.sample_adjoint(cfg, scene, o, d, seed, dL, state_in)
+        return volpath_flat.sample_adjoint(cfg, scene, o, d, seed, dL, state_in,
+                                           deferred=True)
     acc, res, _ = adjoint_walk_kernel(cfg, scene, o, d, seed, dL, state_in)
     if cfg.use_drt and cfg.use_drt_subsampling:
         acc = drt_backward_kernel(cfg, scene, seed, res, _reservoir_get(res) * dL, acc)

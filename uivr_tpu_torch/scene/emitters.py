@@ -3,9 +3,12 @@
 Port of ``uivr_tpu/scene/emitters.py``.  Sampling returns (direction,
 solid-angle pdf, radiance/pdf).  Envmap sampling uses a Walker alias table
 over the flattened H*W texels (one table row and one radiance row per
-sample).  The reference's coarse ``nee`` proxy for maps above 8192 texels
-(deferred-radiance NEE) is not ported yet (K3b, ROADMAP queue 2): the CUDA
-kernel reads the full-resolution table from device memory at any size.
+sample).  A map above 8192 texels also carries the reference's coarse
+``nee`` proxy (an area-weighted downsample to at most 2048 texels with its
+own tables): the walking kernels sample NEE directions from the proxy and
+multiply in the full-resolution radiance of the texel the direction lands
+in (deferred-radiance NEE, K3b; :func:`sample_deferred`), and weigh escapes
+with the proxy's pdf.  The plain twin does the same in its deferred mode.
 
 As the reference's XLA build does, a division by a constant is a
 multiplication by its float32 reciprocal, and fused multiply-adds sit where
@@ -14,7 +17,8 @@ that build fuses them (see ``core/fmath.py``); the kernel repeats both.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+import os
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +75,8 @@ class EnvmapEmitter(NamedTuple):
     alias_tab: torch.Tensor  # (H*W, 4)
     flat_data: torch.Tensor  # (H*W, 3) radiance rows
     to_world: torch.Tensor   # (3, 3)
+    # coarse sampling proxy of a map above 8192 texels (make_envmap), or None
+    nee: Optional["EnvmapEmitter"] = None
 
     def _dir_to_uv(self, d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         dl = transform_dirs(self.to_world.T, d)   # world -> local: d @ M
@@ -118,9 +124,9 @@ class EnvmapEmitter(NamedTuple):
         sin_theta = fmath.sin(torch.clamp(v, 1e-4, 1 - 1e-4) * math.pi)
         return p_uv / (_TWO_PI_SQ * sin_theta)
 
-    def sample_direction(self, u2: torch.Tensor
-                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Alias-table direction sample; returns (d, pdf, radiance/pdf)."""
+    def sample_uv(self, u2: torch.Tensor):
+        """Alias-table sample of a point (u, v) of the map: returns u, v,
+        the solid-angle pdf and the texel it lies in."""
         H, W, _ = self.data.shape
         N = H * W
         scaled = u2[:, 0] * N
@@ -138,25 +144,47 @@ class EnvmapEmitter(NamedTuple):
         dv = torch.where(keep, frac / torch.clamp(a_p, min=1e-20),
                          (frac - a_p) / torch.clamp(1.0 - a_p, min=1e-20))
         v = (row.to(u2.dtype) + torch.clamp(dv, 0.0, 1.0 - 1e-6)) * (1.0 / H)
-        d = self._uv_to_dir(u, v)
         sin_theta = fmath.sin(torch.clamp(v, 1e-4, 1 - 1e-4) * math.pi)
         pdf = (pmf * N) / (_TWO_PI_SQ * sin_theta)
+        return u, v, pdf, texel
+
+    def sample_direction(self, u2: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Alias-table direction sample; returns (d, pdf, radiance/pdf)."""
+        u, v, pdf, texel = self.sample_uv(u2)
+        d = self._uv_to_dir(u, v)
         val = self.flat_data[texel]
         weight = torch.where(pdf[:, None] > 0,
                              val / torch.clamp(pdf, min=1e-20)[:, None], 0.0)
         return d, pdf, weight
 
 
+def sample_deferred(e: EnvmapEmitter, u2: torch.Tensor):
+    """Deferred-radiance NEE (K3b; the reference kernel's ``em_fh`` mode):
+    the direction is sampled from the coarse proxy ``e.nee``, and the
+    radiance is that of the full-resolution texel the direction lands in,
+    ``min(int(v fh), fh-1) fw + min(int(u fw), fw-1)``.  Returns (d, proxy
+    pdf, 1/pdf (0 where the pdf is 0), full-resolution radiance): the
+    caller multiplies its weight by 1/pdf, then by the radiance."""
+    fh, fw, _ = e.data.shape
+    u, v, pdf, _ = e.nee.sample_uv(u2)
+    d = e.nee._uv_to_dir(u, v)
+    inv_pdf = torch.where(pdf > 0, 1.0 / torch.clamp(pdf, min=1e-20), 0.0)
+    col = torch.clamp((u * fw).to(torch.int64), max=fw - 1)
+    row = torch.clamp((v * fh).to(torch.int64), max=fh - 1)
+    return d, pdf, inv_pdf, e.flat_data[row * fw + col]
+
+
 def _build_alias(pmf: np.ndarray):
     """Walker/Vose alias table (host side, O(N)).  Pops in the same order
-    as the reference's native builder, so the tables are identical."""
+    as the reference's native builder, so the tables are identical; the
+    float64 arithmetic runs on Python floats."""
     N = pmf.size
-    scaled = pmf * N
+    scaled = (pmf * N).tolist()
     alias = np.arange(N, dtype=np.int32)
-    prob = np.ones(N, dtype=np.float32)
+    prob = np.ones(N, dtype=np.float64)
     small = [i for i in range(N) if scaled[i] < 1.0]
     large = [i for i in range(N) if scaled[i] >= 1.0]
-    scaled = scaled.copy()
     while small and large:
         s = small.pop()
         l = large.pop()
@@ -166,12 +194,50 @@ def _build_alias(pmf: np.ndarray):
         (small if scaled[l] < 1.0 else large).append(l)
     for i in large + small:
         prob[i] = 1.0
-    return alias, prob
+    return alias, prob.astype(np.float32)
+
+
+def _area_downsample(data: np.ndarray, max_texels: int) -> np.ndarray:
+    """Exact area-weighted mean downsample of (H, W, 3) to at most
+    ``max_texels`` texels (aspect kept; the coarse and fine cell
+    boundaries need not align), in float64: rows, then columns."""
+    H, W, _ = data.shape
+    k = 1
+    while -(-H // k) * -(-W // k) > max_texels:
+        k += 1
+    Hc, Wc = -(-H // k), -(-W // k)
+
+    def overlap(nc, nf):
+        # A[i, j] = |[i/nc,(i+1)/nc] ∩ [j/nf,(j+1)/nf]| * nc  (rows sum to 1)
+        i = np.arange(nc, dtype=np.float64)[:, None]
+        j = np.arange(nf, dtype=np.float64)[None, :]
+        lo = np.maximum(i / nc, j / nf)
+        hi = np.minimum((i + 1) / nc, (j + 1) / nf)
+        return (np.maximum(hi - lo, 0.0) * nc).astype(np.float64)
+
+    rows = np.tensordot(overlap(Hc, H), data.astype(np.float64), axes=(1, 0))
+    out = np.einsum("kw,iwc->ikc", overlap(Wc, W), rows)
+    return out.astype(np.float32)
+
+
+def nee_proxy(data: np.ndarray, to_world: np.ndarray, nee_max_texels: int = 8192,
+              device=None) -> Optional[EnvmapEmitter]:
+    """The coarse NEE proxy of a (H, W, 3) map above ``nee_max_texels``
+    texels (``UIVR_NEE_COARSE_TEX`` texels at most, default 2048), or None."""
+    H, W, _ = data.shape
+    if not nee_max_texels or H * W <= nee_max_texels:
+        return None
+    tgt = int(os.environ.get("UIVR_NEE_COARSE_TEX", 2048))
+    return make_envmap(_area_downsample(data, tgt), to_world, nee_max_texels=0,
+                       device=device)
 
 
 def make_envmap(data: np.ndarray, to_world: np.ndarray = None,
-                device=None) -> EnvmapEmitter:
-    """Build the pmf and alias tables of a (H, W, 3) radiance map."""
+                nee_max_texels: int = 8192, device=None) -> EnvmapEmitter:
+    """Build the pmf and alias tables of a (H, W, 3) radiance map.  A map
+    above ``nee_max_texels`` texels also gets the coarse ``nee`` proxy
+    (:func:`nee_proxy`); ``nee_max_texels=0`` builds none, which turns K3b
+    off."""
     data = np.asarray(data, np.float32)
     H, W, _ = data.shape
     lum = data @ np.array([0.2126, 0.7152, 0.0722], np.float32)
@@ -188,10 +254,12 @@ def make_envmap(data: np.ndarray, to_world: np.ndarray = None,
                          axis=-1).astype(np.float32)
     if to_world is None:
         to_world = np.eye(3, dtype=np.float32)
+    nee = nee_proxy(data, to_world, nee_max_texels, device)
 
     def t(x):
-        return torch.as_tensor(np.ascontiguousarray(x, np.float32), device=device)
+        return torch.as_tensor(np.array(x, np.float32), device=device)
 
-    return EnvmapEmitter(data=t(data), row_pmf=t(row_pmf), cond_pmf=t(cond_pmf),
-                         alias_tab=t(alias_tab), flat_data=t(data.reshape(-1, 3)),
-                         to_world=t(to_world))
+    data_t = t(data)
+    return EnvmapEmitter(data=data_t, row_pmf=t(row_pmf), cond_pmf=t(cond_pmf),
+                         alias_tab=t(alias_tab), flat_data=data_t.reshape(-1, 3),
+                         to_world=t(to_world), nee=nee)
