@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``uivr_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py            # every phase below
+    python3 chip_smoke.py --quick    # phase 1, then phase 5a without times
+    python3 chip_smoke.py --sweep    # every phase, with the sweeps and A/B
+                                     # runs that chose the persistent kernels
 
 Phases, one JSON line each; any failure exits nonzero before the last line.
 K6 (subcell classification) is on by default in every walking kernel; "K6
 off" is the same kernel on the same medium without its subcell table, which
-must give the same result:
+must give the same result.  The walking kernels (``volpath_primal``, its
+path-state entry and ``volpath_adjoint``) are persistent: lanes take rays
+from a work counter, a new one as soon as theirs ends.  The
+one-ray-per-thread kernels they replaced run only here, through the
+wrappers' ``direct=True``, as the A/B baseline and the bit-for-bit
+reference on the card:
 
 1. device: the card (``nvidia-smi`` name and power limit on a line of its
    own), torch and CUDA versions, and the kernels' nvcc builds (one nvcc
-   per source, started together) with ptxas' registers and spills.
+   per source, started together) with ptxas' registers and spills; with
+   ``--sweep`` also the variants of the persistent kernels
+   (PERSIST_VARIANTS: the minimum-blocks bound of ``__launch_bounds__`` at
+   3 to 6 beside the package's own, PACKAGE_MIN_BLOCKS).
 2. tea (K1): ``tea_kernel`` against the plain ``tea_plain`` on 2**20 random
    (v0, v1) pairs at 5, 6 and 8 rounds; bit for bit.
 3. primal (K2 + K3 + K6): ``volpath_primal_kernel`` on 2**16 camera rays at
@@ -35,6 +46,21 @@ must give the same result:
 5. the primal kernel at the shape the render gave it (its first chunk of
    2**20 rays), K6 on and off, beside its plain version (janga-smoke; K6
    on and off on dust-devil's chunk too).
+5a. persistent: the persistent kernels against the one-ray-per-thread ones
+   at the main path's shapes: janga-smoke's render chunk, a truth
+   training step's first forward chunk (32,768 pixels x 32 spp), its
+   replay and adjoint (x 16 spp: 524,288 rays) and its DRT term's resumed
+   primal, dust-devil's render chunk (and janga XML's in phase 9b): every
+   lane equal (radiance bit for bit, escapes, draws, steps, K6's counters;
+   the adjoint's per-ray outputs bit for bit and its gradients within a
+   relative L1 of 1e-4), the lane utilization of both (busy lane-steps
+   over 32 x warp iterations; the direct kernel's from its per-lane
+   steps), times in turns (direct, persistent, persistent, direct); with
+   ``--sweep`` the variants' times and ptxas reports, each equal to the
+   package's build.  The persistent kernels' lanes
+   equal the twin's wherever phases 3-9b compare the main path's
+   kernels with their twins.  Phases 3 and 9b hold the persistent primal
+   against the direct one on their random-pixel rays too.
 5b. K7 (K-candidate batching).  k7_chunk: ``volpath_primal_k_kernel`` at
    K=4 against the K=4 twin on every lane of janga's chunk (radiance bit
    for bit, escapes, draws and the K7 counters), the kernel at K = 1, 2,
@@ -67,7 +93,14 @@ must give the same result:
    each step did: its seconds, loss and gradients, the inputs and outputs
    of its adjoint and DRT calls, and CUDA events around the pixel draw,
    the step and every kernel launch (``volpath_step.TIMINGS``), which give
-   the step's parts.  k7_train: janga-smoke again under UIVR_KCAND=4, two
+   the step's parts.  step_turns: janga's truth step (with ``--sweep``
+   also its second iteration from the constant start and dust-devil's and
+   janga XML's truth steps) with the one-ray-per-thread kernels and the
+   persistent ones in turns.  trace: janga's truth step once more under ``torch.profiler``
+   (``utils/profiling.py``): the device's busy and idle share, its longest
+   idle gaps, the kernels by device time, and the host calls that waited
+   for the device between the forward's launches.  k7_train: janga-smoke
+   again under UIVR_KCAND=4, two
    iterations and a truth step (references at 16 spp): per step 32 K7
    launches, a K=1 replay and DRT resume by the counters, check_step
    (phase 8) on the truth step, and the last 65,536 rays of its first
@@ -80,7 +113,10 @@ must give the same result:
    against ``volpath_flat._drt_backward_flat`` on all 524,288 reservoirs
    of the step: equal
    wavefront maxima K_A and K_B, per-lane t_sel, wsum and found equal on
-   >= 0.90 of lanes, gradients' relative L1 <= 1e-2.
+   >= 0.90 of lanes, gradients' relative L1 <= 1e-2.  The adjoint slice's
+   twin runs in a worker process beside the other two (``submit_twin``),
+   and every twin runs under ``torch.inference_mode``
+   (``twins_without_autograd``): the same ops, less host time per op.
 9. cli: ``uivr_tpu_torch.cli.reproduce`` on tiny-cube (20 iterations at
    batch 557); metrics.jsonl must hold losses and the final checkpoint
    must exist.  fd: ``uivr_tpu_torch.cli.fd`` on tiny-cube (spp 1024, res
@@ -296,6 +332,25 @@ TRAIN_KERNELS = ("volpath_primal",) + ADJ_KERNELS
 SLICE = 8192    # lanes of a training step's adjoint call held against the twin
 
 
+def twins_without_autograd(volpath_flat):
+    """Run the twins' entry points (``sample_primal``, ``adjoint_walk``,
+    ``_drt_backward_flat``) under ``torch.inference_mode``: the same ops on
+    the same tensors, so the same bits, with less host time per op (the
+    twins are bound by it: thousands of small ops per tracking event); no
+    one takes their gradients, and the main path never calls them."""
+    import functools
+
+    import torch
+    for name in ("sample_primal", "adjoint_walk", "_drt_backward_flat"):
+        fn = getattr(volpath_flat, name)
+
+        @functools.wraps(fn)
+        def run(*a, _fn=fn, **k):
+            with torch.inference_mode():
+                return _fn(*a, **k)
+        setattr(volpath_flat, name, run)
+
+
 def rel_l1(a, ref):
     return float((a - ref).abs().sum() / ref.abs().sum().clamp_min(1e-30))
 
@@ -346,10 +401,11 @@ class StepRecorder:
                     vs.TIMINGS = rec["launches"]
                     before = dict(vs.LAUNCHES)
                     t0 = time.perf_counter()
-                    rec["start"] = event()
-                    out = step(*args)
-                    rec["end"] = event()
-                    torch.cuda.synchronize()
+                    with torch.profiler.record_function("train_step"):
+                        rec["start"] = event()
+                        out = step(*args)
+                        rec["end"] = event()
+                        torch.cuda.synchronize()
                     rec["seconds"] = time.perf_counter() - t0
                     vs.TIMINGS = None
                     rec["counts"] = {k: vs.LAUNCHES[k] - before[k] for k in before}
@@ -517,13 +573,122 @@ def phase_adjoint(card, dev, vs, janga, dust, cube, rays_of):
                                "itself without K6 or with the twin")
 
 
+# check_step's adjoint-slice twin, the longest of a step's three twin
+# computations, runs in a worker process (spawn, its own CUDA context)
+# while this process runs the other two: the twins are bound by host time
+# per op, so two processes on two cores take about the time of the
+# longest.  Arguments and results cross as torch.save bytes (CUDA tensors
+# arrive on the card), not through shared memory.
+_TWIN_POOL = []
+
+
+def twin_pool():
+    """The worker (started on the first call)."""
+    if not _TWIN_POOL:
+        import concurrent.futures
+        import multiprocessing
+        _TWIN_POOL.append(concurrent.futures.ProcessPoolExecutor(
+            max_workers=1, mp_context=multiprocessing.get_context("spawn")))
+    return _TWIN_POOL[0]
+
+
+def close_twin_pool():
+    """Stop the worker, if one was started."""
+    while _TWIN_POOL:
+        _TWIN_POOL.pop().shutdown(wait=True, cancel_futures=True)
+
+
+def _dumps(obj):
+    import io
+
+    import torch
+    buf = io.BytesIO()
+    torch.save(obj, buf)
+    return buf.getvalue()
+
+
+def _loads(data):
+    import io
+
+    import torch
+    return torch.load(io.BytesIO(data), weights_only=False)
+
+
+def _sync():
+    import torch
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _twin_job(name, payload, keep):
+    """In the worker: ``volpath_flat.<name>(*args, **kw)`` under inference
+    mode; returns the bytes of the items ``keep`` of its result and its
+    milliseconds."""
+    import torch
+    from uivr_tpu_torch.integrators import volpath_flat
+    args, kw = _loads(payload)
+    _sync()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = getattr(volpath_flat, name)(*args, **kw)
+    _sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    return _dumps(tuple(out[i] for i in keep)), ms
+
+
+def _twin_warm():
+    import torch
+
+    from uivr_tpu_torch.integrators import volpath_flat  # noqa: F401
+    if torch.cuda.is_available():
+        torch.cuda.init()
+
+
+def submit_twin(name, keep, *args, **kw):
+    """Run twin ``name`` in the worker: a future of (its result's items
+    ``keep``, ms)."""
+    return twin_pool().submit(_twin_job, name, _dumps((args, kw)), keep)
+
+
+def twin_result(fut):
+    data, ms = fut.result()
+    return _loads(data), ms
+
+
+def _check_drt_twin(cfg, sc, dr):
+    """``_drt_backward_flat`` on a step's reservoirs, its parts timed:
+    (accumulator, stats, ms by kernel, total ms)."""
+    import torch
+    from uivr_tpu_torch.integrators import volpath_flat
+    from uivr_tpu_torch.scene.gradients import init_accum
+    acc_t = init_accum(sc.medium, need_emission=False)
+    with Laps(volpath_flat, ("drt_distance", "_nee_primal", "sample_primal")) as laps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, p = volpath_flat._drt_backward_flat(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
+                                               acc_t, return_stats=True, deferred=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    st = laps.stamps
+    walk_end = st["drt_distance"][1]
+    nee_end = st["_nee_primal"][1] if cfg.use_nee else walk_end
+    ms = {"volpath_drt_walk": (walk_end - t0) * 1e3,
+          "volpath_drt_nee": (nee_end - walk_end) * 1e3,
+          "volpath_drt_phase": (st["sample_primal"][0] - nee_end) * 1e3,
+          "volpath_primal_state": (st["sample_primal"][1] - st["sample_primal"][0]) * 1e3,
+          "volpath_drt_scatter": (t1 - st["sample_primal"][1]) * 1e3}
+    return acc_t, p, ms, (t1 - t0) * 1e3
+
+
 def check_step(card, vs, tag, step):
     """A recorded training step's kernels against the twins, at the shapes
     the step gave them: the adjoint call's per-lane primary draws, alt
     draws and reservoir depth on its last SLICE rays (the twin keyed by
     their ray ids), and ``drt_backward_kernel`` against
     ``_drt_backward_flat`` on all of the step's reservoirs (the twin's
-    global-counter sampler admits no subset)."""
+    global-counter sampler admits no subset).  The adjoint slice's twin
+    runs in the worker (``submit_twin``) while this process runs the
+    primal slice's and the DRT term's."""
     import torch
     from uivr_tpu_torch.integrators import volpath_flat
     from uivr_tpu_torch.scene.gradients import init_accum
@@ -531,16 +696,19 @@ def check_step(card, vs, tag, step):
     cfg, sc = a["cfg"], a["scene"]
     n = a["o"].shape[0]
     sl = slice(n - SLICE, n)
+    adj_twin = submit_twin("adjoint_walk", (1, 2), cfg, sc, a["o"][sl].clone(),
+                           a["d"][sl].clone(), a["seed"], a["dL"][sl].clone(),
+                           a["L"][sl].clone(), lane0=n - SLICE, deferred=True)
     t0 = time.perf_counter()
     Lt, _ = volpath_flat.sample_primal(cfg, sc, a["o"][sl], a["d"][sl], a["seed"],
                                        lane0=n - SLICE, deferred=True)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
-    _, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, a["o"][sl], a["d"][sl], a["seed"],
-                                               a["dL"][sl], a["L"][sl], lane0=n - SLICE,
-                                               deferred=True)
-    torch.cuda.synchronize()
-    adj_plain_ms = (time.perf_counter() - t1) * 1e3
+    m = sc.medium
+    acc_k, k = vs.drt_backward_kernel(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
+                                      init_accum(m, need_emission=False), return_stats=True)
+    drt_twin = _check_drt_twin(cfg, sc, dr)
+    (res_t, st_t), adj_plain_ms = twin_result(adj_twin)
     adj_agree = {"replay_L": lane_agreement(a["L"][sl], Lt),
                  "dim": equal_frac(a["stats"]["dim"][sl], st_t["dim"]),
                  "alt_dim": equal_frac(a["stats"]["alt_dim"][sl], st_t["alt_dim"]),
@@ -563,29 +731,11 @@ def check_step(card, vs, tag, step):
     if not (adj_rec["grads_finite"] and min(adj_rec["grads_abs_sum"]) > 0):
         raise RuntimeError(f"adjoint_step {tag}: the step's gradients are not finite and nonzero")
 
-    m = sc.medium
-    acc_k, k = vs.drt_backward_kernel(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
-                                      init_accum(m, need_emission=False), return_stats=True)
     rec = {"phase": "drt", "step": tag, "reservoirs": n,
            "vertices": int((dr["res"].active & k["found"]).sum()),
            "K_A": k["k_a"], "K_B": k["k_b"], "recursive_cls": cls_counts(k["rec_stats"]["cls"]),
            "card": card}
-    acc_t = init_accum(m, need_emission=False)
-    with Laps(volpath_flat, ("drt_distance", "_nee_primal", "sample_primal")) as laps:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, p = volpath_flat._drt_backward_flat(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
-                                               acc_t, return_stats=True, deferred=True)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-    st = laps.stamps
-    walk_end = st["drt_distance"][1]
-    nee_end = st["_nee_primal"][1] if cfg.use_nee else walk_end
-    drt_plain_ms = {"volpath_drt_walk": (walk_end - t0) * 1e3,
-                    "volpath_drt_nee": (nee_end - walk_end) * 1e3,
-                    "volpath_drt_phase": (st["sample_primal"][0] - nee_end) * 1e3,
-                    "volpath_primal_state": (st["sample_primal"][1] - st["sample_primal"][0]) * 1e3,
-                    "volpath_drt_scatter": (t1 - st["sample_primal"][1]) * 1e3}
+    acc_t, p, drt_plain_ms, drt_plain_total_ms = drt_twin
     both = k["path_state"].active & p["path_state"].active
     agree = {f: equal_frac(k[f], p[f]) for f in ("t_sel", "wsum", "found")}
     agree["path_state_active"] = equal_frac(k["path_state"].active, p["path_state"].active)
@@ -602,7 +752,7 @@ def check_step(card, vs, tag, step):
             "volpath_primal_state": float((k["rec_L"][both] - p["rec_L"][both]).abs().max()),
             "volpath_drt_scatter": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
                                        float((acc_k.albedo - acc_t.albedo).abs().max()))},
-        "drt_plain_ms": drt_plain_ms, "drt_plain_total_ms": (t1 - t0) * 1e3})
+        "drt_plain_ms": drt_plain_ms, "drt_plain_total_ms": drt_plain_total_ms})
     emit(rec)
     if min(agree.values()) < 0.90 or [k["k_a"], k["k_b"]] != [int(p["k_a"]), int(p["k_b"])] \
             or max(rel.values()) > 1e-2 or not float(acc_t.sigma.abs().sum()) > 0:
@@ -611,7 +761,7 @@ def check_step(card, vs, tag, step):
 
 
 def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoints=True,
-                ref_bundle=None, need=(), k_cand=None):
+                ref_bundle=None, need=(), k_cand=None, ab=(), trace=False):
     """run_optimization of volpathsimple-drt at the preset's full width
     (batch 32,768 pixels, 16 adjoint spp, primal factor 64), ``n_iter``
     iterations from the constant start with the grids at full resolution
@@ -623,21 +773,91 @@ def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoi
     rendered from ``ref_bundle`` (the preset's reference scene) where it
     is given, else from the training bundle's grids, for the bundle's
     training sensors.  ``k_cand``: ``UIVR_KCAND`` for the whole phase (the
-    renders read it, make_render once per run)."""
+    renders read it, make_render once per run).  ``ab``: the steps ("truth",
+    "start": the second iteration from the constant start) timed with the
+    one-ray-per-thread kernels and the persistent ones in turns
+    (step_turns); ``trace``: one more truth step under the profiler
+    (trace_step)."""
     import os
+    args = (card, vs, scene, out_dir, n_iter, ref_spp, opt_kw, checkpoints, ref_bundle, need,
+            ab, trace)
     if k_cand is None:
-        return _phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw, checkpoints,
-                            ref_bundle, need)
+        return _phase_train(*args)
     os.environ["UIVR_KCAND"] = str(k_cand)
     try:
-        return _phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw, checkpoints,
-                            ref_bundle, need)
+        return _phase_train(*args)
     finally:
         del os.environ["UIVR_KCAND"]
 
 
+def step_turns(vs, loop, run, idx):
+    """CUDA-event time (ms) of step ``idx`` of ``run()`` (a run_optimization)
+    with the one-ray-per-thread kernels and with the persistent ones in
+    turns (direct, persistent, persistent, direct); each run must have
+    launched only the walking kernels of its kind."""
+    import contextlib
+    t, counts = [], []
+    for direct in (True, False, False, True):
+        with (Direct(vs) if direct else contextlib.nullcontext()), StepRecorder(vs, loop) as r:
+            run()
+        st = r.steps[idx]
+        t.append(st["start"].elapsed_time(st["end"]))
+        c = st["counts"]
+        counts.append(c)
+        kinds = [c["volpath_primal_direct"], c["volpath_adjoint_direct"]] if direct else \
+            [c["volpath_primal"], c["volpath_adjoint"]]
+        others = [c["volpath_primal"], c["volpath_adjoint"]] if direct else \
+            [c["volpath_primal_direct"], c["volpath_adjoint_direct"]]
+        if min(kinds) == 0 or max(others) > 0:
+            raise RuntimeError(f"step A/B: a {'direct' if direct else 'persistent'} step "
+                               f"launched other kernels: {c}")
+    return {"direct_ms": (t[0] + t[3]) / 2, "persistent_ms": (t[1] + t[2]) / 2, "turns_ms": t,
+            "speedup": (t[0] + t[3]) / (t[1] + t[2]),
+            "launches_direct": {k: counts[0][k] for k in ("volpath_primal_direct",
+                                                          "volpath_primal_state_direct",
+                                                          "volpath_adjoint_direct")},
+            "launches_persistent": {k: counts[1][k] for k in ("volpath_primal",
+                                                              "volpath_primal_state",
+                                                              "volpath_adjoint")}}
+
+
+def trace_step(vs, loop, run):
+    """One training step under the profiler (``utils/profiling.trace``),
+    each kernel launch in a ``record_function`` range of its name: the
+    device's busy and idle share over the step, its longest idle gaps, the
+    kernels by device time, and the host calls that waited for the device
+    between the forward's first and last launch."""
+    import torch
+    from uivr_tpu_torch.utils import profiling
+    launch = vs._launch
+
+    def ranged(key, *a, **k):
+        with torch.profiler.record_function(key):
+            return launch(key, *a, **k)
+    vs._launch = ranged
+    try:
+        with StepRecorder(vs, loop) as r, profiling.trace() as prof:
+            run()
+    finally:
+        vs._launch = launch
+    step = profiling.host_ranges(prof, "train_step")
+    fwd = profiling.host_ranges(prof, "volpath_primal")
+    n_fwd = r.steps[0]["counts"]["volpath_primal"] - 1      # the last one is the replay
+    rec = {"step_host_ms": (step[0][1] - step[0][0]) / 1e3 if step else None,
+           "step_event_ms": r.steps[0]["start"].elapsed_time(r.steps[0]["end"]),
+           **profiling.device_summary(prof, window=step[0] if step else None)}
+    if len(fwd) > n_fwd > 1:
+        lo, hi = fwd[0][0], fwd[n_fwd - 1][0]
+        rec["forward_launches"] = n_fwd
+        rec["syncs_between_forward_launches"] = profiling.syncs_between(prof, lo, hi)
+        rec["forward_device"] = profiling.device_summary(prof, window=(lo, hi), top=3, n_gaps=3)
+    if not rec["device_events"]:
+        rec["note"] = "the trace holds no device time: key_averages() show none on this machine"
+    return rec
+
+
 def _phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw, checkpoints, ref_bundle,
-                 need):
+                 need, ab, trace):
     import os
 
     import torch
@@ -685,6 +905,19 @@ def _phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw, checkpoints,
     with StepRecorder(vs, loop) as truth:
         loop.run_optimization(str(out_dir / "truth"), one, b, cfg, ref_images=refs,
                               start_params=b.params, resume=False, verbose=False)
+
+    def run_truth():
+        loop.run_optimization(str(out_dir / "ab"), one, b, cfg, ref_images=refs,
+                              start_params=b.params, resume=False, verbose=False)
+    turns = {}
+    if "truth" in ab:
+        turns["truth"] = step_turns(vs, loop, run_truth, 0)
+    if "start" in ab:
+        two = dataclasses.replace(one, name=f"{name}/ab-start", n_iter=2)
+        turns["start"] = step_turns(vs, loop, lambda: loop.run_optimization(
+            str(out_dir / "ab-start"), two, b, cfg, ref_images=refs, resume=False,
+            verbose=False), 1)
+    traced = trace_step(vs, loop, run_truth) if trace else None
     vols = {}
     if checkpoints:
         for tag, grids in (("initial", b.start_from), ("final", final)):
@@ -705,8 +938,12 @@ def _phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw, checkpoints,
            "iterations": steps[:-1], "truth_step": steps[-1],
            "truth_adjoint_cls": cls_counts(truth.steps[0]["adjoint"]["stats"]["cls"]),
            "launches": launches, "plain_twin_calls": plain_calls,
-           "checkpoints_read_back": vols, "params_changed": changed, "card": card}
+           "checkpoints_read_back": vols, "params_changed": changed,
+           "step_turns": turns, "card": card}
     emit(rec)
+    if traced is not None:
+        emit({"phase": "trace", "scene": name, "step": "truth", **traced, "card": card})
+        rec["trace"] = traced
     missing = [k for k in TRAIN_KERNELS + ("subcell_classification",) + tuple(need)
                if not launches[k] > 0]
     if missing or any(plain_calls.values()):
@@ -1034,7 +1271,7 @@ def phase_k7_chunk(card, vs, cfg, sc, o, d, seed, dust=None):
     counts = {k: k7_counts(r["out"][2]) for k, r in runs.items() if k > 1}
     (b_ms, b_by), g_ms = k7_bound(o, sc, counts[4])
     ptx = {k: v for k, v in ptxas_report(vs.BUILD["primal"]["log"]).items()
-           if "primal_k_kernel" in k or k.endswith("volpath_primal_kernelEN4uivr12PrimalParamsE")}
+           if "primal_k_kernel" in k or "volpath_primal_kernel" in k}
     rec = {"phase": "k7_chunk", "scene": "janga-smoke", "rays": n, "equal_to_twin": eq,
            "max_abs_err": err, "ms": {k: r["ms"] for k, r in runs.items()},
            "ms_runs": {k: r["ms_runs"] for k, r in runs.items()}, "plain_ms": p_ms,
@@ -1217,6 +1454,304 @@ def phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays, chunk, k1_
     return rec
 
 
+# ------------------------------------------------- persistent scheduling
+# The walking kernels are persistent: lanes take rays from a work counter
+# and a new one as soon as theirs ends.  The one-ray-per-thread kernels they
+# replaced stay as ``direct`` launches, for comparison only.  With
+# ``--sweep``, variants of the two libraries are built beside the package's:
+# the minimum-blocks bound B of __launch_bounds__ (the package's:
+# min_blocks()).
+PERSIST_VARIANTS = {f"B{b}": [f"-DUIVR_MIN_BLOCKS={b}"] for b in (3, 4, 5, 6)}
+# the package's own B (volpath_primal.cu, volpath_adjoint.cu) is not built again
+PACKAGE_MIN_BLOCKS = {"primal": 5, "adjoint": 4}
+
+
+def start_variant_builds():
+    """Start nvcc on the primal and adjoint sources for each of
+    PERSIST_VARIANTS into build/, beside the package's own build: {(lib,
+    variant): (process, path)}."""
+    from uivr_tpu_torch.ops import volpath_step as vs
+    jobs = {}
+    for key in ("primal", "adjoint"):
+        for var, defs in PERSIST_VARIANTS.items():
+            if var == f"B{PACKAGE_MIN_BLOCKS[key]}":
+                continue
+            out = vs.build_dir() / "variants" / f"libuivr_{key}-{var}.so"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            proc = subprocess.Popen([vs._nvcc(), *vs.NVCC_FLAGS, *defs, "-o", str(out),
+                                     str(vs.CSRC / vs.LIBS[key])],
+                                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs[(key, var)] = (proc, out)
+    return jobs
+
+
+def finish_variant_builds(jobs):
+    """Wait for the variant builds and load them: {(lib, variant): (ctypes
+    library, ptxas report)}."""
+    import ctypes
+
+    from uivr_tpu_torch.ops import volpath_step as vs
+    out = {}
+    for (key, var), (proc, path) in jobs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc {key} {var} failed:\n{log}")
+        out[(key, var)] = (vs.bind(ctypes.CDLL(str(path)), key), ptxas_report(log))
+    return out
+
+
+class Direct:
+    """Within: the wrappers' walking launches take the one-ray-per-thread
+    kernels (``direct=True``), for the A/B of a whole training step."""
+
+    def __init__(self, vs):
+        self.vs, self.saved = vs, {}
+
+    def __enter__(self):
+        for name in ("sample_primal_kernel", "adjoint_walk_kernel"):
+            fn = getattr(self.vs, name)
+            self.saved[name] = fn
+
+            def run(*a, _fn=fn, **k):
+                return _fn(*a, direct=True, **k)
+            setattr(self.vs, name, run)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.vs, name, fn)
+
+
+def warp_utilization(steps, width=32):
+    """Busy share of the lane-iterations of a one-ray-per-thread launch:
+    sum(steps) / (width * sum over groups of ``width`` consecutive rays of
+    the group's longest walk)."""
+    import torch
+    s = steps.to(torch.int64)
+    pad = (-s.numel()) % width
+    g = torch.cat([s, s.new_zeros(pad)]).reshape(-1, width)
+    return float(s.sum()) / max(float(g.max(dim=1).values.sum()) * width, 1.0)
+
+
+def util_share(util):
+    """Busy share of a persistent launch's lane-iterations, from its
+    per-warp counters (lane-steps, iterations)."""
+    c = util.sum(dim=0).tolist()
+    return c[0] / max(32 * c[1], 1)
+
+
+def turns_ms(a, b):
+    """CUDA-event times (ms) of two versions of a launch in turns (a, b, b,
+    a), one launch each: (mean of a, mean of b, the four times)."""
+    t = [cuda_ms(f, 1) for f in (a, b, b, a)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
+
+
+def primal_equal(x, y):
+    """Per-lane equality of two primal launches with stats: radiance bit for
+    bit, escapes, draws, steps and K6's counters."""
+    import torch
+    (L1, e1, s1), (L2, e2, s2) = x, y
+    eq = {"L": torch.equal(L1, L2), "escaped": torch.equal(e1, e2)}
+    eq.update({k: torch.equal(s1[k], s2[k]) for k in ("dim", "steps", "cls")})
+    return eq
+
+
+def persistent_chunk(vs, name, cfg, sc, o, d, seed, path_state=None, measure=True):
+    """One primal launch shape, direct against persistent: the lanes equal
+    on every ray (primal_equal), the direct kernel's lane utilization by
+    warps and by blocks of 128, the persistent one's from its counters, and
+    (``measure``) both times in turns."""
+    import torch
+    args = (cfg, sc, o, d, seed)
+    ps = dict(path_state=path_state)
+    direct = vs.sample_primal_kernel(*args, return_stats=True, direct=True, **ps)
+    per = vs.sample_primal_kernel(*args, return_stats=True, **ps)
+    torch.cuda.synchronize()
+    eq = primal_equal(per, direct)
+    steps = direct[2]["steps"]
+    rec = {"phase": "persistent_chunk", "launch": name,
+           "rays": int(steps.numel()), "equal_to_direct": eq,
+           "utilization_direct": warp_utilization(steps),
+           "utilization_direct_blocks": warp_utilization(steps, 128),
+           "tracking_steps": int(steps.sum()), "max_steps_lane": int(steps.max()),
+           "median_steps_lane": float(steps.float().median())}
+    if measure:
+        rec["utilization_persistent"] = util_share(per[2]["util"])
+        d_ms, p_ms, t = turns_ms(lambda: vs.sample_primal_kernel(*args, direct=True, **ps),
+                                 lambda: vs.sample_primal_kernel(*args, **ps))
+        rec.update({"ms_direct": d_ms, "ms_persistent": p_ms, "turns_ms": t,
+                    "speedup": d_ms / p_ms})
+    if not all(eq.values()):
+        raise RuntimeError(f"{name}: the persistent primal differs from the direct kernel: {eq}")
+    return rec, per
+
+
+def persistent_adjoint(vs, cfg, sc, o, d, seed, dL, L, measure=True):
+    """The adjoint at one shape, direct against persistent: per-ray outputs
+    bit for bit (draws, alt draws, steps, events, K6's counters, the
+    reservoir), gradients within a relative L1 of 1e-4 (the atomics' order
+    follows the schedule), utilization and (``measure``) times in turns."""
+    import torch
+    args = (cfg, sc, o, d, seed, dL, L)
+    acc_d, res_d, st_d = vs.adjoint_walk_kernel(*args, direct=True)
+    acc_p, res_p, st_p = vs.adjoint_walk_kernel(*args, return_util=measure)
+    torch.cuda.synchronize()
+    eq = {k: torch.equal(st_p[k], st_d[k]) for k in ("dim", "alt_dim", "steps", "events", "cls")}
+    eq.update({f"res_{f}": torch.equal(getattr(res_p, f), getattr(res_d, f))
+               for f in res_p._fields})
+    rel = {"sigma": rel_l1(acc_p.sigma, acc_d.sigma), "albedo": rel_l1(acc_p.albedo, acc_d.albedo)}
+    rec = {"phase": "persistent_adjoint", "rays": o.shape[0], "equal_to_direct": eq,
+           "rel_l1_to_direct": rel, "utilization_direct": warp_utilization(st_d["steps"]),
+           "tracking_steps": int(st_d["steps"].sum()), "max_steps_lane": int(st_d["steps"].max())}
+    if measure:
+        rec["utilization_persistent"] = util_share(st_p["util"])
+        d_ms, p_ms, t = turns_ms(lambda: vs.adjoint_walk_kernel(*args, direct=True),
+                                 lambda: vs.adjoint_walk_kernel(*args))
+        rec.update({"ms_direct": d_ms, "ms_persistent": p_ms, "turns_ms": t,
+                    "speedup": d_ms / p_ms})
+    if not all(eq.values()) or max(rel.values()) > 1e-4:
+        raise RuntimeError(f"adjoint: the persistent kernel differs from the direct one: {eq}, "
+                           f"{rel}")
+    return rec, (acc_p, res_p, st_p)
+
+
+def variant_primal(vs, lib, cfg, sc, o, d, seed):
+    """The primal through a variant library's persistent launcher: (L,
+    escaped)."""
+    import ctypes
+
+    import torch
+    n, dev = o.shape[0], o.device
+    L = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    esc = torch.empty((n,), dtype=torch.bool, device=dev)
+    p = vs.primal_params(cfg, sc, o, d, seed, L, esc)
+    counter, _ = vs.persistent_args(dev, False)
+    rc = lib.volpath_primal_launch(ctypes.byref(p), 0, counter.data_ptr(), None,
+                                   torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"variant primal launch failed ({rc})")
+    return L, esc
+
+
+def variant_adjoint(vs, lib, cfg, sc, o, d, seed, dL, L):
+    """The adjoint through a variant library's persistent launcher: (acc,
+    res, stats)."""
+    import ctypes
+
+    import torch
+    from uivr_tpu_torch.scene.gradients import init_accum
+    acc = init_accum(sc.medium, need_emission=False)
+    a, res, st = vs.adjoint_params(cfg, sc, o, d, seed, dL, L, acc)
+    counter, _ = vs.persistent_args(o.device, False)   # as the main path launches
+    rc = lib.volpath_adjoint_launch(ctypes.byref(a), counter.data_ptr(), None,
+                                    torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise RuntimeError(f"variant adjoint launch failed ({rc})")
+    return acc, res, st
+
+
+def training_chunks(b, seed=77):
+    """The rays of a training step's first forward chunk (batch 32,768
+    pixels x 32 of its 1024 spp, as _primal_image splits it) and of its
+    adjoint pass (x 16 spp: 524,288 rays), from the training sensors, as
+    opt.loop draws them."""
+    import torch
+    from uivr_tpu_torch.core.rng import sample_tea_32
+    from uivr_tpu_torch.render import batched
+    dev = b.params.sigma_t.device
+    sidx, pix = batched.sample_batch_pixels(seed, b.cameras.n_sensors, b.film_size, 32768,
+                                            sensors=b.sensors or None, device=dev)
+    fwd = batched._expand_rays(b.cameras, sidx, pix, b.film_size, 32,
+                               sample_tea_32(seed, 1000)[0])
+    adj = batched._expand_rays(b.cameras, sidx, pix, b.film_size, 16,
+                               sample_tea_32(seed, 39)[0])
+    return tuple(t.contiguous() for t in fwd), tuple(t.contiguous() for t in adj)
+
+
+def phase_persistent(card, vs, dev, janga, dust, render_chunk, variants, measure=True):
+    """The persistent walking kernels against the direct ones at the main
+    path's shapes (janga-smoke's render chunk and a truth training step's
+    forward chunk, replay, adjoint and DRT resume; dust-devil's render
+    chunk): equal on every lane, utilization before and after, and with
+    ``measure`` times in turns.  With ``variants`` (``--sweep``): the
+    minimum-blocks sweep (ptxas' registers and spills, times).
+    Returns {launch: record} for the kernels line."""
+    import torch
+    from uivr_tpu_torch.config import get_int_config
+    from uivr_tpu_torch.integrators.volpathsimple import _reservoir_get
+    from uivr_tpu_torch.scene.gradients import init_accum
+    preset, b, sc = janga
+    cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
+    out = {}
+    co, cd = render_chunk(b)
+    out["render_chunk"], _ = persistent_chunk(vs, "janga-smoke render chunk", cfg, sc, co, cd,
+                                              1234, measure=measure)
+    (fo, fd), (ao, ad) = training_chunks(b)
+    seed = 4243
+    out["forward_chunk"], fwd = persistent_chunk(vs, "janga-smoke truth forward chunk", cfg, sc,
+                                                 fo, fd, seed, measure=measure)
+    out["replay"], rep = persistent_chunk(vs, "janga-smoke truth replay", cfg, sc, ao, ad, seed + 1,
+                                          measure=measure)
+    n = ao.shape[0]
+    dL = torch.from_numpy(np.random.RandomState(11).rand(n, 3).astype(np.float32) / n).to(dev)
+    out["adjoint"], (acc, res, st_adj) = persistent_adjoint(vs, cfg, sc, ao, ad, seed + 1, dL,
+                                                            rep[0], measure=measure)
+    _, drt = vs.drt_backward_kernel(cfg, sc, seed + 1, res, _reservoir_get(res) * dL,
+                                    init_accum(sc.medium, need_emission=False), return_stats=True)
+    from uivr_tpu_torch.core.rng import sample_tea_32
+    rec_seed, _ = sample_tea_32(seed + 1, 0x7177)
+    out["state"], _ = persistent_chunk(vs, "janga-smoke truth DRT resume", cfg, sc, None, None,
+                                       rec_seed, path_state=drt["path_state"], measure=measure)
+    dco, dcd = render_chunk(dust[1])
+    dcfg = get_int_config("volpathsimple-drt").create(max_depth=dust[0].max_depth)
+    out["dust_chunk"], _ = persistent_chunk(vs, "dust-devil render chunk", dcfg, dust[2], dco, dcd,
+                                            1234, measure=measure)
+    for v in out.values():
+        emit(dict(v, card=card))
+    if not (measure and variants):
+        return out
+    # the minimum-blocks sweep: each variant build of
+    # the primal on the forward chunk and of the adjoint at the replay's
+    # shape, against the package's build in turns (package, variant,
+    # variant, package), equal to it lane for lane
+    package_b = {k: vs._load(k).min_blocks() for k in ("primal", "adjoint")}
+    if package_b != PACKAGE_MIN_BLOCKS:
+        raise RuntimeError(f"the package's minimum blocks are {package_b}, "
+                           f"PACKAGE_MIN_BLOCKS says {PACKAGE_MIN_BLOCKS}")
+    L_pkg, e_pkg = fwd[0], fwd[1]
+    adj_args = (cfg, sc, ao, ad, seed + 1, dL, rep[0])
+    sweep = {"primal": {f"B{package_b['primal']}": "package"},
+             "adjoint": {f"B{package_b['adjoint']}": "package"}}
+    for (key, var), (lib, ptx) in variants.items():
+        if key == "primal":
+            Lv, ev = variant_primal(vs, lib, cfg, sc, fo, fd, seed)
+            same = {"L": torch.equal(Lv, L_pkg), "escaped": torch.equal(ev, e_pkg)}
+            pkg_ms, v_ms, t = turns_ms(
+                lambda: vs.sample_primal_kernel(cfg, sc, fo, fd, seed),
+                lambda: variant_primal(vs, lib, cfg, sc, fo, fd, seed))
+            name = "volpath_primal_kernel"
+        else:
+            acc_v, res_v, st_v = variant_adjoint(vs, lib, *adj_args)
+            same = {"dim": torch.equal(vs._u32(st_v["dim"]), st_adj["dim"]),
+                    "reservoir_depth": torch.equal(res_v.depth, res.depth),
+                    "sigma_rel_l1_le_1e-4": rel_l1(acc_v.sigma, acc.sigma) <= 1e-4}
+            pkg_ms, v_ms, t = turns_ms(lambda: vs.adjoint_walk_kernel(*adj_args),
+                                       lambda: variant_adjoint(vs, lib, *adj_args))
+            name = "volpath_adjoint_kernel"
+        sweep[key][var] = {"ms": v_ms, "ms_package": pkg_ms, "turns_ms": t,
+                           "equal_to_package": same,
+                           "ptxas": {k: v_ for k, v_ in ptx.items() if name in k}}
+        if not all(same.values()):
+            raise RuntimeError(f"persistent {key} variant {var} differs from the package's "
+                               f"build: {same}")
+    rec = {"phase": "persistent", "scene": "janga-smoke",
+           "package_min_blocks": package_b, "sweep": sweep, "card": card}
+    emit(rec)
+    out["sweep"] = rec
+    return out
+
+
 # ------------------------------------------------------------- XML scenes
 # The janga-smoke and dust-devil presets load Mitsuba XML scenes whose
 # assets the repository does not hold.  write_standins writes assets of the
@@ -1362,9 +1897,10 @@ def k3b_chunk_bound(o, sc, stats):
     return req, gather, {"tracking_steps": steps, "extra_draws": extra}
 
 
-def phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk):
+def phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk, ab=()):
     """The XML path: janga-smoke's XML preset at full width (render CLI,
-    K3b against its plain version and against K3, run_optimization) and
+    K3b against its plain version and against K3, run_optimization; ``ab``
+    its steps timed direct against persistent, as phase_train's) and
     dust-devil's 4k map (render, K3b and K3 timed in turns).  Returns the
     kernels-line entry of K3b and the XML records."""
     import os
@@ -1381,7 +1917,7 @@ def phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk):
     asset_s = write_standins(root)
     os.environ["UIVR_SCENE_DIR"] = str(root)
     try:
-        return _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk,
+        return _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, ab,
                            asset_s, cli_render, get_int_config, exr_io, volpath_flat,
                            batched, torch)
     finally:
@@ -1389,7 +1925,7 @@ def phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk):
         tmp.cleanup()
 
 
-def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, asset_s,
+def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, ab, asset_s,
                 cli_render, get_int_config, exr_io, volpath_flat, batched, torch):
     out = {}
     # ----------------------------------------------------------- xml-render
@@ -1503,6 +2039,10 @@ def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, asset_s
         raise RuntimeError("K3b: volpath_primal disagrees with the deferred twin on the "
                            "render's chunk")
     out["chunk"] = rec
+    # the persistent kernel against the one-ray-per-thread one on this chunk
+    rec, _ = persistent_chunk(vs, "janga-smoke XML render chunk (K3b)", cfg, sc, co, cd, seed0)
+    emit(dict(rec, card=card))
+    out["persistent"] = rec
     # K7 with K3b on this scene
     out["k7"] = phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays, (co, cd),
                              k1_render, out_dir)
@@ -1533,7 +2073,7 @@ def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, asset_s
     ref = xml_scene("janga-smoke", dev, ref=True)
     train, first, truth = phase_train(card, vs, (preset, b, sc), out_dir / "xml", 2, 4,
                                       checkpoints=False, ref_bundle=ref[1],
-                                      need=("deferred_nee",))
+                                      need=("deferred_nee",), ab=ab)
     grads = [s_["grads"] for s_ in (first, truth)]
     emit({"phase": "xml_train_grads", "scene": "janga-smoke (XML)",
           "grads_abs_sum": {tag: [float(g.sigma_t.abs().sum()), float(g.albedo.abs().sum())]
@@ -1611,8 +2151,40 @@ def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, asset_s
     return kernel, out
 
 
-def main():
+def phase_xml_chunk_quick(card, vs, dev, render_chunk):
+    """janga-smoke XML's render chunk (K3b), direct against persistent, on
+    stand-in assets (as phase_xml writes them)."""
+    import os
+    import tempfile
+
+    from uivr_tpu_torch.config import get_int_config
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.TemporaryDirectory(prefix="uivr_scenes_", dir=out_dir)
+    write_standins(Path(tmp.name))
+    os.environ["UIVR_SCENE_DIR"] = tmp.name
+    try:
+        preset, b, sc = xml_scene("janga-smoke", dev)
+        cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
+        co, cd = render_chunk(b)
+        rec, _ = persistent_chunk(vs, "janga-smoke XML render chunk (K3b)", cfg, sc, co, cd, 1234,
+                                  measure=False)
+        emit(dict(rec, card=card))
+    finally:
+        del os.environ["UIVR_SCENE_DIR"]
+        tmp.cleanup()
+
+
+def main(argv=None):
+    """``--quick``: the builds, then the persistent kernels against the
+    one-ray-per-thread ones at the main path's shapes (lanes equal, the
+    latter's lane utilization), and stop.  ``--sweep``: every phase, with
+    the minimum-blocks variants built and timed in phase 5a and the
+    one-ray-per-thread A/B of janga's start step and of dust-devil's and
+    janga XML's truth steps besides janga's truth step."""
     import torch
+    args = sys.argv[1:] if argv is None else argv
+    quick, sweep = "--quick" in args, "--sweep" in args
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on a GPU",
               file=sys.stderr)
@@ -1637,6 +2209,9 @@ def main():
     from uivr_tpu_torch.scene.scene import Scene
 
     dev = torch.device("cuda")
+    twins_without_autograd(volpath_flat)
+    if not quick:
+        twin_pool().submit(_twin_warm)   # the worker starts while the kernels build
     # ---------------------------------------------------------- 1. device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1645,20 +2220,23 @@ def main():
     print(card, flush=True)
     t0 = time.time()
     fmad_proc, fmad_lib = build_fmad_variant()
+    variant_jobs = start_variant_builds() if sweep else {}
     vs.build()      # one nvcc per source, all started together
     for name in vs.LIBS:
         vs._load(name)
-    build_s = time.time() - t0
     fmad_log, _ = fmad_proc.communicate()
     if fmad_proc.returncode != 0:
         raise RuntimeError(f"nvcc --fmad=true failed:\n{fmad_log}")
+    variants = finish_variant_builds(variant_jobs)
+    build_s = time.time() - t0
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "libraries": {k: str(b["path"].relative_to(HERE)) for k, b in vs.BUILD.items()},
           "build_s": round(build_s, 3),
           "nvcc_s": {k: b["seconds"] for k, b in vs.BUILD.items()},
-          "ptxas": {k: ptxas_report(b["log"]) for k, b in vs.BUILD.items()}})
+          "ptxas": {k: ptxas_report(b["log"]) for k, b in vs.BUILD.items()},
+          "ptxas_variants": {f"{k}-{v}": r for (k, v), (_, r) in variants.items()}})
 
     rs = np.random.RandomState(20260417)
     # ---------------------------------------------------------- 2. tea
@@ -1703,19 +2281,22 @@ def main():
         o, d = sample_rays(b.cameras, torch.zeros(n, dtype=torch.int64, device=dev), uv)
         return o.contiguous(), d.contiguous()
 
-    fmad = ctypes.CDLL(str(fmad_lib))
-    fmad.volpath_primal_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
-    fmad.volpath_primal_launch.restype = ctypes.c_int
+    fmad = vs.bind(ctypes.CDLL(str(fmad_lib)), "primal")
 
     def run_fmad(cfg, sc, o, d, seed):
-        L = torch.empty((o.shape[0], 3), dtype=torch.float32, device=dev)
-        esc = torch.empty((o.shape[0],), dtype=torch.bool, device=dev)
-        p = vs.primal_params(cfg, sc, o, d, seed, L, esc)
-        rc = fmad.volpath_primal_launch(ctypes.byref(p), torch.cuda.current_stream().cuda_stream)
-        if rc:
-            raise RuntimeError(f"--fmad=true build failed to launch ({rc})")
+        L, _ = variant_primal(vs, fmad, cfg, sc, o, d, seed)
         torch.cuda.synchronize()
         return L
+
+    def render_chunk(b, spp=64, seed0=1234):
+        """The rays of a full-frame render's first chunk (2**20 rays)."""
+        W_ = b.film_size[0]
+        chunk_pix = (1 << 20) // spp
+        pix = torch.stack([torch.arange(chunk_pix, device=dev) % W_,
+                           torch.arange(chunk_pix, device=dev) // W_], dim=-1)
+        sidx = torch.zeros(chunk_pix, dtype=torch.int64, device=dev)
+        sub_seed, _ = rng.sample_tea_32(seed0, 22)
+        return batched._expand_rays(b.cameras, sidx, pix, b.film_size, spp, sub_seed)
 
     n_cmp = 1 << 16
     seed = 42
@@ -1731,6 +2312,17 @@ def main():
                        for name, (_, _, sc_) in (("janga-smoke", janga), ("dust-devil", dust),
                                                  ("tiny-cube", cube),
                                                  ("janga-smoke-sparse", sparse))}})
+    if quick:
+        # lane utilization of the one-ray-per-thread kernels at the main
+        # path's shapes, and the persistent kernels equal to them on every
+        # lane; no times
+        phase_persistent(card, vs, dev, janga, dust, render_chunk, variants, measure=False)
+        phase_xml_chunk_quick(card, vs, dev, render_chunk)
+        print(card, flush=True)
+        emit({"quick": True, "device": {"platform": "gpu",
+                                        "kind": torch.cuda.get_device_name(0),
+                                        "count": torch.cuda.device_count()}})
+        return 0
     runs = [("janga-smoke", janga, True, 0.90), ("dust-devil", dust, True, 0.90),
             ("tiny-cube", cube, True, 0.95), ("tiny-cube", cube, False, 0.95),
             ("janga-smoke-sparse", sparse, True, None)]
@@ -1741,18 +2333,21 @@ def main():
         o, d = random_pixel_rays(b, n_cmp)
         Lk, ek, sk = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True)
         Lo, eo, so = vs.sample_primal_kernel(cfg, off, o, d, seed, return_stats=True)
+        direct = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True, direct=True)
         torch.cuda.synchronize()
         same = {"radiance_bits": torch.equal(Lk, Lo), "escaped": torch.equal(ek, eo),
                 "dim": torch.equal(sk["dim"], so["dim"]),
                 "steps": torch.equal(sk["steps"], so["steps"])}
+        same_direct = primal_equal((Lk, ek, sk), direct)
         k_ms, off_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed),
                                  lambda: vs.sample_primal_kernel(cfg, off, o, d, seed), 3)
         cls = cls_counts(sk["cls"])
         rec = {"phase": "primal", "scene": name, "nee": nee, "rays": n_cmp,
-               "cls_on_equals_off": same, "cls": cls, "kernel_ms": k_ms,
+               "cls_on_equals_off": same, "persistent_equals_direct": same_direct,
+               "cls": cls, "kernel_ms": k_ms,
                "kernel_ms_cls_off": off_ms, "steps": int(sk["steps"].sum()),
                "max_steps_lane": int(sk["steps"].max()), "card": card}
-        bad = not all(same.values())
+        bad = not all(same.values()) or not all(same_direct.values())
         if need is not None:
             t0 = time.perf_counter()
             Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True,
@@ -1835,16 +2430,6 @@ def main():
             raise RuntimeError(f"{name}: a repeated render differs from the first")
 
     # ---------------------------------------------------------- 5. kernels
-    def render_chunk(b, spp=64, seed0=1234):
-        """The rays of a full-frame render's first chunk (2**20 rays)."""
-        W_ = b.film_size[0]
-        chunk_pix = (1 << 20) // spp
-        pix = torch.stack([torch.arange(chunk_pix, device=dev) % W_,
-                           torch.arange(chunk_pix, device=dev) // W_], dim=-1)
-        sidx = torch.zeros(chunk_pix, dtype=torch.int64, device=dev)
-        sub_seed, _ = rng.sample_tea_32(seed0, 22)
-        return batched._expand_rays(b.cameras, sidx, pix, b.film_size, spp, sub_seed)
-
     preset, b, sc = janga
     seed0 = 1234
     o, d = render_chunk(b)
@@ -1912,6 +2497,9 @@ def main():
     ]
     if kernels[1]["agreement"] < 0.90:
         raise RuntimeError("main-path chunk: kernel disagrees with the plain twin")
+    # the persistent kernels against the one-ray-per-thread ones
+    persist = phase_persistent(card, vs, dev, janga, dust, render_chunk, variants)
+    more_ab = ("truth",) if sweep else ()
     # K7 at the same chunk, and its images against K=1
     k7_chunk = phase_k7_chunk(card, vs, cfg, sc, o, d, seed0,
                               dust=(dust[2], dust_o, dust_d))
@@ -1919,17 +2507,18 @@ def main():
 
     # ---------------------------------------------------------- 6-9. training
     phase_adjoint(card, dev, vs, janga, dust, cube, random_pixel_rays)
-    train, start, truth = phase_train(card, vs, janga, out_dir, 3, 64)
+    train, start, truth = phase_train(card, vs, janga, out_dir, 3, 64,
+                                      ab=("truth", "start") if sweep else ("truth",), trace=True)
     check_step(card, vs, "start", start)
     check = check_step(card, vs, "truth", truth)
     k7_train, k7_first, k7_rec, _ = phase_k7_train(card, vs, janga, out_dir, train)
     dust_train, _, dust_truth = phase_train(
         card, vs, dust, out_dir, 2, 16, {"lr": 1e-4, "lr_factors": {"albedo": 100.0}},
-        checkpoints=False)
+        checkpoints=False, ab=more_ab)
     dust_check = check_step(card, vs, "dust-devil truth", dust_truth)
     phase_cli(card, out_dir)
     phase_fd(card, vs, out_dir)
-    k3b, xml = phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk)
+    k3b, xml = phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk, more_ab)
     for k in kernels:
         k["launches_per_train_step"] = train["iterations"][0]["launches"].get(k["name"], 0)
     kernels += training_kernels(train, truth, check)
@@ -1978,6 +2567,34 @@ def main():
          "train_slice_max_abs_err": k7_rec["slice_max_abs_err"],
          "truth_forward_kernels_ms": {"k4": k7_rec["truth_forward_kernels_ms"],
                                       "k1": k7_rec["truth_forward_kernels_ms_k1"]}})
+    # the persistent kernels' utilization and their direct times; the
+    # one-ray-per-thread kernels, for comparison only (the main path never
+    # launched them: their counts in the main run are 0)
+    by_name = {k["name"]: k for k in kernels}
+    pairs = (("volpath_primal", "volpath_primal_direct", persist["render_chunk"]),
+             ("volpath_primal_state", "volpath_primal_state_direct", persist["state"]),
+             ("volpath_adjoint", "volpath_adjoint_direct", persist["adjoint"]))
+    for name, dname, rec in pairs:
+        base = by_name[name]
+        base.update({"ms_direct_same_shape": rec["ms_direct"],
+                     "ms_persistent_same_shape": rec["ms_persistent"],
+                     "utilization_direct": rec["utilization_direct"],
+                     "utilization_persistent": rec["utilization_persistent"],
+                     "same_shape": f"{rec['rays']} rays, {rec.get('launch', 'adjoint')}"})
+        kernels.append({
+            "name": dname, "route": "cuda", "source": base["source"],
+            "replaces": base["replaces"], "comparison_only": True,
+            "launches": train["launches"][dname], "max_abs_err": base["max_abs_err"],
+            "ms": rec["ms_direct"], "plain_ms": base["plain_ms"], "bound_ms": base["bound_ms"],
+            "bound_by": base["bound_by"], "library_ms": None,
+            "utilization": rec["utilization_direct"],
+            "shape": f"{rec['rays']} rays, {rec.get('launch', 'janga-smoke truth adjoint')}"})
+        if train["launches"][dname] != 0:
+            raise RuntimeError(f"the main path launched {dname}")
+    fc = persist["forward_chunk"]
+    by_name["volpath_primal"]["truth_forward_chunk"] = {
+        k: fc[k] for k in ("rays", "ms_direct", "ms_persistent", "utilization_direct",
+                           "utilization_persistent")}
     emit({"kernels": kernels, "card": card})
     if not all(math.isfinite(k[f]) for k in kernels for f in ("ms", "plain_ms", "bound_ms")):
         raise RuntimeError("a kernel timing is not finite")
@@ -1995,4 +2612,6 @@ if __name__ == "__main__":
         traceback.print_exc()
         emit({"phase": "failed", "error": traceback.format_exc().splitlines()[-1]})
         rc = 1
+    finally:
+        close_twin_pool()
     sys.exit(rc)

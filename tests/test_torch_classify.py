@@ -29,8 +29,8 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from torch_common import assert_lanes_agree, both_scenes, camera_rays, host_library
-from uivr_tpu.config import smoke_scene
+from torch_common import (assert_lanes_agree, both_scenes, camera_rays, host_library,
+                          sparse_smoke_bundle)
 from uivr_tpu.core.grids import build_bound_grid as j_build_bound_grid
 from uivr_tpu.integrators import VolpathConfig as JCfg
 from uivr_tpu.integrators import volpath_flat as jflat
@@ -48,17 +48,6 @@ CFG = dict(max_depth=4, rr_depth=2, shadow_rr=0.05)
 ADJ_CFG = dict(max_depth=4, trans_grad_samples=2, shadow_rr=0.05)
 
 
-def _sparse_bundle(**kw):
-    """tests/pallas_common.py's sparse fixture: a 32^3 smoke whose density
-    (x4) lives only in the central block [10:22]^3."""
-    b = smoke_scene(res=32, resx=32, resy=32, n_sensors=2, **kw)
-    sig = np.asarray(b.params.sigma_t).copy()
-    mask = np.zeros_like(sig)
-    mask[10:22, 10:22, 10:22] = 1.0
-    b.params = b.params._replace(sigma_t=jnp.asarray(sig * mask * 4.0))
-    return b
-
-
 @pytest.fixture(scope="module")
 def fixtures():
     """{name: (JAX bundle, JAX scene, port scene on, port scene off, rays)}:
@@ -68,8 +57,8 @@ def fixtures():
     subcells' supports, so shadow walks meet candidates only where hi > 0;
     under the global majorant they also meet them in empty subcells."""
     out = {}
-    for name, jb in (("sparse", _sparse_bundle()),
-                     ("global", _sparse_bundle(majorant_factor=1))):
+    for name, jb in (("sparse", sparse_smoke_bundle()),
+                     ("global", sparse_smoke_bundle(majorant_factor=1))):
         jsc, tb, on = both_scenes(jb)
         off = Scene(medium=finalize_medium(
             tb.params, dataclasses.replace(tb.medium_cfg, cls_cells=0), tb.to_world),

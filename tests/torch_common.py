@@ -31,6 +31,19 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+def sparse_smoke_bundle(**kw):
+    """tests/pallas_common.py's sparse fixture: a 32^3 smoke whose density
+    (x4) lives only in the central block [10:22]^3 (empty and occupied
+    subcells, short and long walks)."""
+    from uivr_tpu.config import smoke_scene
+    b = smoke_scene(res=32, resx=32, resy=32, n_sensors=2, **kw)
+    sig = np.asarray(b.params.sigma_t).copy()
+    mask = np.zeros_like(sig)
+    mask[10:22, 10:22, 10:22] = 1.0
+    b.params = b.params._replace(sigma_t=jnp.asarray(sig * mask * 4.0))
+    return b
+
+
 def bundle_to_numpy(b) -> dict:
     """Plain numpy view of a JAX SceneBundle, as ``bundle_from_numpy``
     takes it."""

@@ -16,7 +16,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..scene.camera import Cameras, look_at, make_cameras, orbit_cameras
-from ..scene.emitters import ConstantEmitter, EnvmapEmitter, make_envmap, nee_proxy
+from ..scene.emitters import EnvmapEmitter, constant_emitter, make_envmap, nee_proxy
 from ..scene.medium import MediumConfig, MediumParams
 from ..scene.scene import Emitter
 
@@ -86,8 +86,7 @@ def cube_test_scene(resx: int = 128, resy: int = 128,
         params=params,
         medium_cfg=MediumConfig(majorant_factor=majorant_factor,
                                 scale=density_scale),
-        emitter=ConstantEmitter(radiance=torch.tensor(
-            [1.0, 0.8, 0.2], dtype=torch.float32, device=device)),
+        emitter=constant_emitter([1.0, 0.8, 0.2], device=device),
         cameras=cams, to_world=T, film_size=(resx, resy),
         max_depth=max_depth, start_from=_start(params, density_scale))
 
@@ -187,14 +186,15 @@ def bundle_from_numpy(d: dict, device=None) -> SceneBundle:
         if k in cfg_kw:
             cfg_kw[k] = float(cfg_kw[k])
     if "radiance" in d:
-        emitter = ConstantEmitter(radiance=t(d["radiance"]))
+        emitter = constant_emitter(d["radiance"], device=device)
     else:
         nee = nee_proxy(np.asarray(d["env_data"], np.float32),
                         np.asarray(d["env_to_world"], np.float32), device=device)
         emitter = EnvmapEmitter(
             data=t(d["env_data"]), row_pmf=t(d["env_row_pmf"]),
             cond_pmf=t(d["env_cond_pmf"]), alias_tab=t(d["env_alias_tab"]),
-            flat_data=t(d["env_flat_data"]), to_world=t(d["env_to_world"]), nee=nee)
+            flat_data=t(d["env_flat_data"]), to_world=t(d["env_to_world"]), nee=nee,
+            to_world_host=tuple(np.asarray(d["env_to_world"], np.float32).reshape(-1).tolist()))
     cams = Cameras(cam_to_world=t(d["cam_to_world"]),
                    tan_half_fov=t(d["tan_half_fov"]), aspect=t(d["aspect"]))
     return SceneBundle(

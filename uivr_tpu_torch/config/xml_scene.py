@@ -35,7 +35,7 @@ from ..core.grids import resize_trilinear
 from ..core.hdr_io import read_hdr
 from ..core.vol_io import read_vol
 from ..scene.camera import Cameras
-from ..scene.emitters import ConstantEmitter, make_envmap
+from ..scene.emitters import constant_emitter, make_envmap
 from ..scene.medium import MediumConfig, MediumParams
 from .scenes import SceneBundle
 
@@ -254,7 +254,7 @@ def load_xml_scene(path: str, variables: Dict[str, object] = None,
         elif ty == "constant":
             rad = p.get("radiance", [1.0, 1.0, 1.0])
             rad = [rad] * 3 if isinstance(rad, float) else rad
-            emitter = ConstantEmitter(radiance=t(rad))
+            emitter = constant_emitter(rad, device=device)
         else:
             raise ValueError(f"unsupported emitter {ty!r}")
     if emitter is None:

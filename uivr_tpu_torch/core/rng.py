@@ -12,6 +12,7 @@ On ``cuda`` tensors the vector hash runs the hand-written TEA kernel
 """
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -23,9 +24,10 @@ _TEA_DELTA = 0x9E3779B9
 _TEA_K0, _TEA_K1, _TEA_K2, _TEA_K3 = 0xA341316C, 0xC8013EA4, 0xAD90777D, 0x7E95761E
 
 # Per-draw TEA rounds of the LaneSampler streams (see the reference module
-# for why 5 rounds suffice there and not for the wavefront Sampler).  The
-# CUDA kernel receives this value from its wrapper.
-_DRAW_ROUNDS = 5
+# for why 5 rounds suffice there and not for the wavefront Sampler), read
+# from UIVR_TEA_DRAW_ROUNDS at import as the reference reads it.  The CUDA
+# kernels receive this value from their wrappers.
+_DRAW_ROUNDS = int(os.environ.get("UIVR_TEA_DRAW_ROUNDS", 5))
 
 
 def _as_u32(x):

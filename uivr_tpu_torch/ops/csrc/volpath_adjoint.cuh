@@ -92,10 +92,19 @@ struct AdjointHooks {
   Reservoir res;
   int32_t n_real, n_replay;   // events that scatter 32 and 8 floats
 
-  __host__ __device__ AdjointHooks(const AdjParams& a, int64_t i, const LaneRng& rng)
-      : A(a), max_steps(3 * a.P.max_steps), dL(load3(a.dL, i)),
-        alt(rng.fork(0x9E3779B9u)), rp_dim(0), sh_dim0(0), rp_t(0.0f),
-        rp_tr(0.0f), sh_adj{0.0f, 0.0f, 0.0f}, n_real(0), n_replay(0) {
+  __host__ __device__ explicit AdjointHooks(const AdjParams& a)
+      : A(a), max_steps(3 * a.P.max_steps) {}
+
+  // The per-ray state, set when the lane starts ray i (whose primary
+  // stream is rng): a persistent lane that takes a new ray resets all of
+  // it, REPLAY's rp_t and rp_dim included.
+  __host__ __device__ void start(int64_t i, const LaneRng& rng) {
+    dL = load3(A.dL, i);
+    alt = rng.fork(0x9E3779B9u);
+    rp_dim = sh_dim0 = 0u;
+    rp_t = rp_tr = 0.0f;
+    sh_adj = {0.0f, 0.0f, 0.0f};
+    n_real = n_replay = 0;
     res.wsum = res.cur_w = res.o = res.d_l = res.d_w = V3{0.0f, 0.0f, 0.0f};
     res.maxt = 0.0f;
     res.depth = -1;
@@ -183,14 +192,20 @@ struct AdjointHooks {
   __host__ __device__ void scattered(const LaneState& s) { sh_dim0 = s.rng.dim; }
 };
 
-__host__ __device__ inline void adjoint_lane(const AdjParams& A, int64_t i) {
-  const PrimalParams& P = A.P;
-  LaneState s;
-  init_from_ray(P, i, s);
+// An adjoint lane's start on ray i: the primal lane's from a world ray,
+// the replayed radiance, the hooks' per-ray state.
+__host__ __device__ inline void adjoint_begin(const AdjParams& A, int64_t i, LaneState& s,
+                                              AdjointHooks& h) {
+  init_from_ray(A.P, i, s);
   init_common(s);
   s.result = load3(A.L_in, i);
-  AdjointHooks h(A, i, s.rng);
-  trace_lane(P, s, h);
+  h.start(i, s.rng);
+}
+
+// Ray i's outputs: its DRT reservoir and per-lane counters.
+__host__ __device__ inline void adjoint_end(const AdjParams& A, int64_t i, const LaneState& s,
+                                            const AdjointHooks& h) {
+  const PrimalParams& P = A.P;
   const Reservoir& r = h.res;
   store3(A.res_wsum, i, r.wsum);
   store3(A.res_cur_w, i, r.cur_w);
@@ -208,6 +223,14 @@ __host__ __device__ inline void adjoint_lane(const AdjParams& A, int64_t i) {
     A.events[2 * i] = h.n_real;
     A.events[2 * i + 1] = h.n_replay;
   }
+}
+
+__host__ __device__ inline void adjoint_lane(const AdjParams& A, int64_t i) {
+  LaneState s;
+  AdjointHooks h(A);
+  adjoint_begin(A, i, s, h);
+  trace_lane(A.P, s, h);
+  adjoint_end(A, i, s, h);
 }
 
 }  // namespace uivr

@@ -594,7 +594,9 @@ __host__ __device__ inline void apply_event(const PrimalParams& P, LaneState& s,
   h.scattered(s);
 }
 
-// The tracking loop, one event per step.  Hooks:
+// One tracking event of a lane that is not DONE and has steps left (the
+// body of trace_lane's loop; the persistent kernels call it directly, one
+// event per warp iteration).  Hooks:
 //   kAdjoint               REPLAY walks exist (adjoint only)
 //   max_steps              tracking steps allowed per lane
 //   shadow_done(s, c)      a shadow walk ended with contribution c; returns
@@ -604,72 +606,82 @@ __host__ __device__ inline void apply_event(const PrimalParams& P, LaneState& s,
 //   replay(s, ...)         one REPLAY step (adjoint only)
 //   scattered(s)           after a scatter's draws
 template <class Hooks>
+__host__ __device__ inline void lane_step(const PrimalParams& P, LaneState& s, Hooks& h) {
+  ++s.steps;
+  const bool is_main = s.mode == MAIN, is_sh = s.mode == SHADOW;
+  bool is_rp = false;
+  if constexpr (Hooks::kAdjoint) is_rp = s.mode == REPLAY;
+  const V3 wd = is_main ? s.d_l : s.sh_d;
+  float wt = is_main ? s.t : s.sh_t;
+  const float wmax = is_main ? s.maxt : s.sh_tmax;
+  float u_step, u_evt;
+  if constexpr (Hooks::kAdjoint) {
+    if (is_rp) wt = h.rp_t;
+  }
+  float t_exit;
+  const float sigma_maj = cell_step(P, s.o, wd, wt, t_exit);
+  if (is_rp) {   // the shadow walk's draws, re-read at the replay counter
+    if constexpr (Hooks::kAdjoint) {
+      u_step = s.rng.at(h.rp_dim);
+      u_evt = s.rng.at(h.rp_dim + 1u);
+    }
+  } else {
+    u_step = s.rng.next(true);
+    u_evt = s.rng.next(true);
+  }
+  const float t_cand = wt + free_step(sigma_maj, u_step);
+  const float bound = fminf(t_exit, wmax);
+  const bool collided = t_cand < bound;
+  const bool fin_seg = !collided && t_exit >= wmax;
+  const bool crossed = !collided && t_exit < wmax;
+  const float t_next = collided ? t_cand : (crossed ? t_exit : wt);
+
+  const V3 p = step_point(s.o, t_cand, wd);
+  float sig = 0.0f, r = 0.0f, ratio = 1.0f;
+  V3 alb = {0.0f, 0.0f, 0.0f};
+  if (collided) {   // sigma and albedo matter only at a collision
+    ++s.n_cand;
+    // K6: a MAIN candidate with u_evt * sigma_maj >= hi(p) >= sigma(p) is
+    // null, and a SHADOW candidate in a cell with hi == 0 has sigma == 0:
+    // both decide as the fetch would, with sig = 0 and the same draws.
+    // REPLAY always fetches (its cotangent needs sigma).
+    bool cls = false;
+    if (P.Ds > 0 && !is_rp) {
+      const float hi = subcell_bound(P, p);
+      cls = is_main ? u_evt * sigma_maj >= hi : hi <= 0.0f;
+      if (cls) {
+        if (is_main) ++s.n_cls_main; else ++s.n_cls_sh;
+      }
+    }
+    if (!cls) {
+      ++s.n_fetch;
+      sigma_albedo(P, p, sig, alb);
+      r = sigma_maj > 0.0f ? sig / fmaxf(sigma_maj, 1e-20f) : 0.0f;
+      ratio = fmaxf(1.0f - r, 0.0f);
+    }
+  }
+
+  if constexpr (Hooks::kAdjoint) {
+    if (is_rp) {
+      h.replay(P, s, p, sig, sigma_maj, ratio, collided, fin_seg, t_next, u_evt);
+      return;
+    }
+  }
+  apply_event(P, s, h, is_sh, collided, fin_seg, t_next, t_cand, p, sig, r, ratio,
+              alb, u_evt);
+}
+
+// Whether the lane's walk is over: DONE, or out of tracking steps.
+template <class Hooks>
+__host__ __device__ inline bool lane_finished(const LaneState& s, const Hooks& h) {
+  return s.mode == DONE || s.steps >= h.max_steps;
+}
+
+// The tracking loop: events until the lane's walk is over.
+template <class Hooks>
 __host__ __device__ inline void trace_lane(const PrimalParams& P, LaneState& s,
                                            Hooks& h) {
-  while (s.mode != DONE && s.steps < h.max_steps) {
-    ++s.steps;
-    const bool is_main = s.mode == MAIN, is_sh = s.mode == SHADOW;
-    bool is_rp = false;
-    if constexpr (Hooks::kAdjoint) is_rp = s.mode == REPLAY;
-    const V3 wd = is_main ? s.d_l : s.sh_d;
-    float wt = is_main ? s.t : s.sh_t;
-    const float wmax = is_main ? s.maxt : s.sh_tmax;
-    float u_step, u_evt;
-    if constexpr (Hooks::kAdjoint) {
-      if (is_rp) wt = h.rp_t;
-    }
-    float t_exit;
-    const float sigma_maj = cell_step(P, s.o, wd, wt, t_exit);
-    if (is_rp) {   // the shadow walk's draws, re-read at the replay counter
-      if constexpr (Hooks::kAdjoint) {
-        u_step = s.rng.at(h.rp_dim);
-        u_evt = s.rng.at(h.rp_dim + 1u);
-      }
-    } else {
-      u_step = s.rng.next(true);
-      u_evt = s.rng.next(true);
-    }
-    const float t_cand = wt + free_step(sigma_maj, u_step);
-    const float bound = fminf(t_exit, wmax);
-    const bool collided = t_cand < bound;
-    const bool fin_seg = !collided && t_exit >= wmax;
-    const bool crossed = !collided && t_exit < wmax;
-    const float t_next = collided ? t_cand : (crossed ? t_exit : wt);
-
-    const V3 p = step_point(s.o, t_cand, wd);
-    float sig = 0.0f, r = 0.0f, ratio = 1.0f;
-    V3 alb = {0.0f, 0.0f, 0.0f};
-    if (collided) {   // sigma and albedo matter only at a collision
-      ++s.n_cand;
-      // K6: a MAIN candidate with u_evt * sigma_maj >= hi(p) >= sigma(p) is
-      // null, and a SHADOW candidate in a cell with hi == 0 has sigma == 0:
-      // both decide as the fetch would, with sig = 0 and the same draws.
-      // REPLAY always fetches (its cotangent needs sigma).
-      bool cls = false;
-      if (P.Ds > 0 && !is_rp) {
-        const float hi = subcell_bound(P, p);
-        cls = is_main ? u_evt * sigma_maj >= hi : hi <= 0.0f;
-        if (cls) {
-          if (is_main) ++s.n_cls_main; else ++s.n_cls_sh;
-        }
-      }
-      if (!cls) {
-        ++s.n_fetch;
-        sigma_albedo(P, p, sig, alb);
-        r = sigma_maj > 0.0f ? sig / fmaxf(sigma_maj, 1e-20f) : 0.0f;
-        ratio = fmaxf(1.0f - r, 0.0f);
-      }
-    }
-
-    if constexpr (Hooks::kAdjoint) {
-      if (is_rp) {
-        h.replay(P, s, p, sig, sigma_maj, ratio, collided, fin_seg, t_next, u_evt);
-        continue;
-      }
-    }
-    apply_event(P, s, h, is_sh, collided, fin_seg, t_next, t_cand, p, sig, r, ratio,
-                alb, u_evt);
-  }
+  while (!lane_finished(s, h)) lane_step(P, s, h);
 }
 
 // ---------------------------------------------------------------- K7
@@ -852,16 +864,23 @@ __host__ __device__ inline void write_primal(const PrimalParams& P, int64_t i,
   write_cls_counts(P, i, s);
 }
 
-// One primal lane from a world ray (from_state = false) or a PathState.
-__host__ __device__ inline void primal_lane(const PrimalParams& P, int64_t i,
-                                            bool from_state) {
-  LaneState s;
+// A primal lane's start on ray i: a world ray (from_state = false) or a
+// PathState.
+__host__ __device__ inline void primal_begin(const PrimalParams& P, int64_t i,
+                                             bool from_state, LaneState& s) {
   if (from_state) {
     init_from_state(P, i, s);
   } else {
     init_from_ray(P, i, s);
   }
   init_common(s);
+}
+
+// One primal lane from a world ray (from_state = false) or a PathState.
+__host__ __device__ inline void primal_lane(const PrimalParams& P, int64_t i,
+                                            bool from_state) {
+  LaneState s;
+  primal_begin(P, i, from_state, s);
   PrimalHooks h{P.max_steps};
   trace_lane(P, s, h);
   write_primal(P, i, s);

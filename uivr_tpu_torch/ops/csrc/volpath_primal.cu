@@ -9,8 +9,9 @@
 // subcell classification of PRE :892-907 (K6), plus the escape MIS of
 // _finish) together with the persistent/compacted host loops around it.
 // The in-kernel escape (:908-950) and the cross_steps unroll need no
-// counterpart: a lane here resolves escapes and crossings in its own loop.  One thread traces one ray to completion, keyed by its
-// ray index, so a lane walks the same path as in the plain twin.
+// counterpart: a lane here resolves escapes and crossings in its own loop.
+// A lane traces one ray to completion, keyed by its ray index, so it walks
+// the same path as in the plain twin.
 //
 // What bounds it: every tracking event reads the 8 float4 corners of the
 // sigma+albedo grid (128 B) at a data-dependent point, plus one majorant
@@ -24,8 +25,26 @@
 // candidates that the subcell bound table (16 KB at 16^3, read from global
 // memory, mostly from L1/L2) decides: a MAIN candidate with
 // u * sigma_maj >= hi is null, a SHADOW candidate in a cell with hi == 0
-// passes with ratio 1.  Persistent scheduling, shared-memory majorants and
-// subcell tables, and warp-level compaction are later work.
+// passes with ratio 1.
+//
+// The kernel is persistent (persistent.cuh): the grid fills the card once
+// (occupancy x SMs, taken once per library load), and each lane takes rays
+// from a work counter that the launcher zeroes, a new one as soon as its
+// ray ends, so a warp no longer waits on its longest path while its other
+// lanes idle (lane utilization, the busy share of a warp's lane-iterations,
+// is 0.17 one ray per thread on janga-smoke's training forward, 0.48
+// persistent).  The minimum-blocks bound UIVR_MIN_BLOCKS caps the registers
+// at 65536 / (128 B) a thread: B = 5 (96 registers, no spills) ran a janga
+// training forward chunk 9% faster than B = 4 (115) on an H100; B = 6
+// (80, 120 B spilled) 13%, B = 3 as B = 4 (PERF.md; `chip_smoke.py
+// --sweep` builds and times each B).  A block that kept the majorant
+// supergrid and the subcell table in shared memory saved nothing
+// measurable, nor did a warp that waited for 8 or 16 idle lanes before
+// it refilled (PERF.md), so a lane refills as soon as its ray ends and
+// every table is read from global memory.
+//
+// volpath_primal_direct_launch keeps the one-ray-per-thread kernels, for
+// comparison only: nothing on the main path launches them.
 //
 // volpath_primal_k_kernel<KMAX> is the primal lane with K-candidate batches
 // (K7, k_cand in 2..KMAX; instantiated for KMAX 2, 4 and 8), which replaces
@@ -42,32 +61,46 @@
 // K=4, 255 and spills at K=8, against 128) halve and quarter the warps per
 // SM, and the batches add cell steps and discarded fetches.
 //
-// volpath_primal_state_kernel is the same lane started from a PathState
-// (K2's path_state entry): the recursive detached Li of the delayed DRT term
+// With from_state, the same lane starts from a PathState (K2's path_state
+// entry, volpath_primal_state in the wrappers' counts): the recursive detached Li of the delayed DRT term
 // (uivr_tpu/integrators/volpath_flat.py:712-718, sample_primal_pallas with
 // path_state).
 //
 // tea_kernel (K1) exposes the inlined TEA hash for a bit-exact check.
 #include <cuda_runtime.h>
 
-#include "volpath_lane.cuh"
+#include "persistent.cuh"
 
+#ifndef UIVR_MIN_BLOCKS
+#define UIVR_MIN_BLOCKS 5
+#endif
 namespace {
 
-__global__ void __launch_bounds__(128)
-volpath_primal_kernel(const uivr::PrimalParams p) {
+constexpr int kThreads = 128;
+
+template <bool kState>
+__global__ void __launch_bounds__(kThreads, UIVR_MIN_BLOCKS)
+volpath_primal_kernel(const uivr::PrimalParams p, unsigned long long* counter,
+                      long long* util) {
+  uivr::PrimalTask t(p, kState);
+  uivr::run_persistent(t, p.n, counter, util);
+}
+
+// one thread, one ray: the kernels before persistent scheduling
+__global__ void __launch_bounds__(kThreads)
+volpath_primal_direct_kernel(const uivr::PrimalParams p) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < p.n) uivr::primal_lane(p, i, false);
 }
 
-__global__ void __launch_bounds__(128)
-volpath_primal_state_kernel(const uivr::PrimalParams p) {
+__global__ void __launch_bounds__(kThreads)
+volpath_primal_state_direct_kernel(const uivr::PrimalParams p) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < p.n) uivr::primal_lane(p, i, true);
 }
 
 template <int KMAX>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(kThreads)
 volpath_primal_k_kernel(const uivr::PrimalParams p) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < p.n) uivr::primal_lane_k<KMAX>(p, i);
@@ -85,20 +118,55 @@ __global__ void tea_kernel(const uint32_t* __restrict__ v0,
   o1[i] = b;
 }
 
-constexpr int kThreads = 128;
-
 unsigned int n_blocks(int64_t n) {
   return (unsigned int)((n + kThreads - 1) / kThreads);
+}
+
+template <bool kState>
+int launch_persistent(const uivr::PrimalParams& p, unsigned long long* counter,
+                      long long* util, cudaStream_t st) {
+  static int per_sm = 0;
+  auto kernel = volpath_primal_kernel<kState>;
+  kernel<<<uivr::persistent_grid(kernel, kThreads, p.n, per_sm), kThreads, 0, st>>>(
+      p, counter, util);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-int volpath_primal_launch(const uivr::PrimalParams* params, void* stream) {
+// The persistent primal kernel: world rays, or a PathState with
+// from_state.  counter: 8 bytes of scratch, zeroed here on the stream.
+// util: (warps, 2) int64 utilization counters, or null.
+int volpath_primal_launch(const uivr::PrimalParams* params, int from_state, void* counter,
+                          void* util, void* stream) {
+  if (params->n <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)counter;
+  long long* u = (long long*)util;
+  cudaError_t e = cudaMemsetAsync(c, 0, sizeof(unsigned long long), st);
+  if (e != cudaSuccess) return (int)e;
+  return from_state ? launch_persistent<true>(*params, c, u, st)
+                    : launch_persistent<false>(*params, c, u, st);
+}
+
+// The minimum-blocks bound of the persistent kernels' __launch_bounds__.
+int min_blocks() { return UIVR_MIN_BLOCKS; }
+
+// Warps a persistent launch can hold at most: the rows its util needs.
+int persistent_max_warps() { return uivr::sm_count() * 64; }
+
+// The one-ray-per-thread kernels (comparison only).
+int volpath_primal_direct_launch(const uivr::PrimalParams* params, int from_state,
+                                 void* stream) {
   if (params->n > 0) {
-    volpath_primal_kernel<<<n_blocks(params->n), kThreads, 0,
-                            (cudaStream_t)stream>>>(*params);
+    cudaStream_t st = (cudaStream_t)stream;
+    if (from_state) {
+      volpath_primal_state_direct_kernel<<<n_blocks(params->n), kThreads, 0, st>>>(*params);
+    } else {
+      volpath_primal_direct_kernel<<<n_blocks(params->n), kThreads, 0, st>>>(*params);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -114,14 +182,6 @@ int volpath_primal_k_launch(const uivr::PrimalParams* params, int kmax, void* st
     case 4: volpath_primal_k_kernel<4><<<grid, block, 0, st>>>(*params); break;
     case 8: volpath_primal_k_kernel<8><<<grid, block, 0, st>>>(*params); break;
     default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-int volpath_primal_state_launch(const uivr::PrimalParams* params, void* stream) {
-  if (params->n > 0) {
-    volpath_primal_state_kernel<<<n_blocks(params->n), kThreads, 0,
-                                  (cudaStream_t)stream>>>(*params);
   }
   return (int)cudaGetLastError();
 }

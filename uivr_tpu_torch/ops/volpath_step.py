@@ -19,6 +19,9 @@ The CUDA sources live in ``csrc/``:
 - ``volpath_adjoint.cuh`` the adjoint hooks: REPLAY walk, PRB and
                           transmittance cotangents, DRT reservoir (K4, K5)
 - ``volpath_drt.cuh``     the delayed DRT term's lanes
+- ``persistent.cuh``      the persistent scheduler of the primal and
+                          adjoint kernels: lanes take rays from a work
+                          counter and a new one as soon as theirs ends
 - ``volpath_primal.cu``, ``volpath_adjoint.cu``, ``volpath_drt.cu``: the
   ``__global__`` kernels and ``extern "C"`` launchers, one library each
 
@@ -57,11 +60,15 @@ from ..scene.scene import Scene
 # "subcell_classification" counts the walking kernels' launches that ran K6
 # (their medium had a subcell table), "deferred_nee" those that ran K3b
 # (their envmap had a coarse proxy), "k_candidate" the primal launches that
-# ran K7 (``volpath_primal_k_kernel``, k_cand > 1)
+# ran K7 (``volpath_primal_k_kernel``, k_cand > 1).  The ``*_direct`` kernels are the one-ray-per-thread kernels that the
+# persistent ones replaced, launched only when a caller asks (``direct``)
+# to compare the two.
 LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_adjoint": 0, "volpath_drt_walk": 0, "volpath_drt_nee": 0,
             "volpath_drt_phase": 0, "volpath_drt_scatter": 0,
-            "subcell_classification": 0, "deferred_nee": 0, "k_candidate": 0}
+            "subcell_classification": 0, "deferred_nee": 0, "k_candidate": 0,
+            "volpath_primal_direct": 0,
+            "volpath_primal_state_direct": 0, "volpath_adjoint_direct": 0}
 # K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
 # candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
 # events, of which classified, classified SHADOW events, sigma fetches
@@ -71,13 +78,16 @@ CLS_COUNTERS = ("candidates", "main_nulls", "cls_main_nulls", "cls_shadow", "fet
 K7_COUNTERS = ("batches", "cell_steps", "fetched", "discarded")
 # the instantiations of volpath_primal_k_kernel: the largest k_cand each takes
 K7_BUILDS = (2, 4, 8)
+# per-warp counters of a persistent launch's lane utilization, in order:
+# events run by busy lanes, warp iterations (``util`` of the stats)
+UTIL_COUNTERS = ("lane_steps", "iterations")
 # None, or a list to which every launch appends (kernel, start, end): CUDA
 # events recorded on the launch's stream just before and after it
 TIMINGS = None
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEADERS = ("rng.cuh", "volpath_lane.cuh", "volpath_adjoint.cuh",
-           "volpath_drt.cuh")
+           "volpath_drt.cuh", "persistent.cuh")
 # library -> its CUDA source
 LIBS = {"primal": "volpath_primal.cu", "adjoint": "volpath_adjoint.cu",
         "drt": "volpath_drt.cu"}
@@ -191,11 +201,16 @@ class DrtParams(ctypes.Structure):
         + [("drt_seed", ctypes.c_uint32)])
 
 
-# launcher name -> extra argument types after the params pointer
+# launcher name -> extra argument types after the params pointer (before
+# the stream); the persistent launchers take the work counter and the
+# utilization counters
+_PERSISTENT = [ctypes.c_void_p, ctypes.c_void_p]
 _LAUNCHERS = {
-    "primal": {"volpath_primal_launch": [], "volpath_primal_state_launch": [],
+    "primal": {"volpath_primal_launch": [ctypes.c_int] + _PERSISTENT,
+               "volpath_primal_direct_launch": [ctypes.c_int],
                "volpath_primal_k_launch": [ctypes.c_int], "tea_launch": None},
-    "adjoint": {"volpath_adjoint_launch": []},
+    "adjoint": {"volpath_adjoint_launch": _PERSISTENT,
+                "volpath_adjoint_direct_launch": []},
     "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int]},
 }
 _SIZES = {"primal": ("primal_params_size", PrimalParams),
@@ -203,31 +218,39 @@ _SIZES = {"primal": ("primal_params_size", PrimalParams),
           "drt": ("drt_params_size", DrtParams)}
 
 
+def bind(lib, key: str):
+    """Set the argument types of library ``key``'s launchers on the ctypes
+    library ``lib`` (the package's build of it, or a variant) and check its
+    parameter block's layout; returns ``lib``."""
+    for fn, extra in _LAUNCHERS[key].items():
+        f = getattr(lib, fn)
+        if extra is None:     # tea_launch
+            f.argtypes = [ctypes.c_void_p] * 4 + [
+                ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+        else:
+            f.argtypes = [ctypes.c_void_p, *extra, ctypes.c_void_p]
+        f.restype = ctypes.c_int
+    size_fn, struct = _SIZES[key]
+    getattr(lib, size_fn).restype = ctypes.c_int
+    if getattr(lib, size_fn)() != ctypes.sizeof(struct):
+        raise RuntimeError(f"{struct.__name__} layout differs between "
+                           "the CUDA source and its ctypes mirror")
+    if key in ("primal", "adjoint"):
+        lib.min_blocks.restype = ctypes.c_int
+    if key == "primal":
+        lib.uivr_error_string.argtypes = [ctypes.c_int]
+        lib.uivr_error_string.restype = ctypes.c_char_p
+        lib.persistent_max_warps.restype = ctypes.c_int
+    return lib
+
+
 def _load(name: str = "primal"):
     """The ctypes library ``name``; the first call builds all of them."""
     if name not in _libs:
         paths = build()
         for key, path in paths.items():
-            if key in _libs:
-                continue
-            lib = ctypes.CDLL(str(path))
-            for fn, extra in _LAUNCHERS[key].items():
-                f = getattr(lib, fn)
-                if extra is None:     # tea_launch
-                    f.argtypes = [ctypes.c_void_p] * 4 + [
-                        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-                else:
-                    f.argtypes = [ctypes.c_void_p, *extra, ctypes.c_void_p]
-                f.restype = ctypes.c_int
-            size_fn, struct = _SIZES[key]
-            getattr(lib, size_fn).restype = ctypes.c_int
-            if getattr(lib, size_fn)() != ctypes.sizeof(struct):
-                raise RuntimeError(f"{struct.__name__} layout differs between "
-                                   "the CUDA source and its ctypes mirror")
-            if key == "primal":
-                lib.uivr_error_string.argtypes = [ctypes.c_int]
-                lib.uivr_error_string.restype = ctypes.c_char_p
-            _libs[key] = lib
+            if key not in _libs:
+                _libs[key] = bind(ctypes.CDLL(str(path)), key)
     return _libs[name]
 
 
@@ -282,7 +305,11 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
     medium's subcell table (K6) goes in when it has one, and with
     ``deferred`` the envmap's coarse proxy (K3b) when it has one: the
     walking kernels then sample NEE from the proxy (the reference's
-    ``_em_dims``: ``(fh, fw)`` are the map's own dims)."""
+    ``_em_dims``: ``(fh, fw)`` are the map's own dims).  Nothing is read
+    back from the device: the transforms and the constant emitter's values
+    come from the host copies the scene keeps (``Medium.w2l``,
+    ``EnvmapEmitter.to_world_host``, ``ConstantEmitter.host``), so a
+    launch never waits for the card."""
     if path_state is not None:
         n, device = path_state.o_l.shape[0], path_state.o_l.device
     elif o is not None:
@@ -326,9 +353,11 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
     p.n = n
     em = scene.emitter
     if isinstance(em, ConstantEmitter):
+        if em.host is None:
+            raise ValueError("ConstantEmitter without host copies: make it with "
+                             "scene.emitters.constant_emitter")
         p.emitter = 0
-        p.radiance[:] = em.radiance.tolist()
-        p.const_weight[:] = em.weight.tolist()
+        p.radiance[:], p.const_weight[:] = em.host
     elif isinstance(em, EnvmapEmitter):
         p.emitter = 1
         eH, eW = em.data.shape[:2]
@@ -337,7 +366,10 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
         p.env_alias = _need(em.alias_tab, "alias table", dev, shape=(eH * eW, 4))
         p.env_row_pmf = _need(em.row_pmf, "row pmf", dev, shape=(eH,))
         p.env_cond_pmf = _need(em.cond_pmf, "conditional pmf", dev, shape=(eH, eW))
-        p.env_to_world[:] = em.to_world.reshape(-1).tolist()
+        if em.to_world_host is None:
+            raise ValueError("EnvmapEmitter without its host to_world: make it with "
+                             "scene.emitters.make_envmap")
+        p.env_to_world[:] = em.to_world_host
         if deferred and em.nee is not None:
             c = em.nee
             cH, cW = c.data.shape[:2]
@@ -354,7 +386,7 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
     p.scale, p.phase_g = m.scale, m.phase_g
     p.shadow_rr = cfg.shadow_rr
     p.inv_shadow_rr = 1.0 / cfg.shadow_rr if cfg.shadow_rr > 0 else 0.0
-    p.w2l[:] = m.world_to_local[:3, :4].reshape(-1).tolist()
+    p.w2l[:] = m.w2l
     return p
 
 
@@ -365,6 +397,22 @@ def _stream(dev) -> int:
 def _u32(t: torch.Tensor) -> torch.Tensor:
     """uint32 counters held in int32 -> int64 values in [0, 2**32)."""
     return t.to(torch.int64) & _M32
+
+
+def persistent_args(dev, util: bool):
+    """The scratch of a persistent launch: ``(counter, util)``.
+    ``counter`` is the work counter (the launcher zeroes it on the stream);
+    ``util`` the per-warp counters of :data:`UTIL_COUNTERS` (warps, 2)
+    int64 where asked for, else None."""
+    counter = torch.empty((1,), dtype=torch.int64, device=dev)
+    if not util:
+        return counter, None
+    return counter, torch.zeros((_load("primal").persistent_max_warps(), len(UTIL_COUNTERS)),
+                                dtype=torch.int64, device=dev)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def k7_build(k_cand: int) -> int:
@@ -381,7 +429,8 @@ def k7_build(k_cand: int) -> int:
 
 def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
                          return_stats: bool = False,
-                         path_state: PathState = None, k_cand: int = 1):
+                         path_state: PathState = None, k_cand: int = 1,
+                         direct: bool = False):
     """Primal estimate of world rays ``o``, ``d`` (n, 3) float32, or of the
     paths resumed from ``path_state`` (then ``o``, ``d`` are unused).
     ``k_cand > 1``: K-candidate batching (K7; world rays only, K6 off, as
@@ -390,12 +439,14 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     Returns ``(L (n,3), escaped (n,))`` and, with ``return_stats``, a dict of
     per-lane ``dim`` (draws consumed) and ``steps``, like the plain twin;
     the kernel adds ``cls``, K6's per-lane counters (n, 5) int32 in the
-    order of :data:`CLS_COUNTERS`, and with ``k_cand > 1`` the K7 counters
-    of :data:`K7_COUNTERS`, each (n,) int32.
+    order of :data:`CLS_COUNTERS`, with ``k_cand > 1`` the K7 counters of
+    :data:`K7_COUNTERS`, each (n,) int32, and at ``k_cand == 1`` ``util``,
+    the persistent kernel's per-warp counters of :data:`UTIL_COUNTERS`.
     On ``cpu`` tensors this is the plain twin (deferred mode); on ``cuda``
-    tensors it launches ``volpath_primal_kernel``
-    (``volpath_primal_state_kernel`` with a path state,
-    ``volpath_primal_k_kernel`` with ``k_cand > 1``)."""
+    tensors it launches the persistent ``volpath_primal_kernel`` (from the
+    path state with one), ``volpath_primal_k_kernel`` with ``k_cand > 1``,
+    and with ``direct`` the one-ray-per-thread kernel that the persistent
+    one replaced (for comparison; no ``util``)."""
     kmax = k7_build(k_cand)
     if k_cand > 1 and path_state is not None:
         raise ValueError("K-candidate batching takes world rays, not a path state")
@@ -407,7 +458,7 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     n, dev = ref.shape[0], ref.device
     L = torch.empty((n, 3), dtype=torch.float32, device=dev)
     escaped = torch.empty((n,), dtype=torch.bool, device=dev)
-    dims = steps = cls = kc = None
+    dims = steps = cls = kc = util = None
     if return_stats:
         dims = torch.empty((n,), dtype=torch.int32, device=dev)
         steps = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -421,21 +472,26 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
         # K6 is off with K7, as the reference's _make_step decides
         params.sub, params.Ds, params.Hs, params.Ws = None, 0, 0, 0
         params.k_cand, params.cross_steps = k_cand, volpath_flat.CROSS_STEPS
-        params.kc_counts = None if kc is None else kc.data_ptr()
+        params.kc_counts = _ptr(kc)
     flags = dict(classified=params.Ds > 0, deferred=params.nee_H > 0)
-    if path_state is not None:
-        _launch("volpath_primal_state", lib.volpath_primal_state_launch,
-                ctypes.byref(params), _stream(dev), **flags)
-    elif k_cand > 1:
-        _launch("volpath_primal", lib.volpath_primal_k_launch, ctypes.byref(params), kmax,
+    key = "volpath_primal_state" if path_state is not None else "volpath_primal"
+    from_state = int(path_state is not None)
+    if k_cand > 1:
+        _launch(key, lib.volpath_primal_k_launch, ctypes.byref(params), kmax,
                 _stream(dev), k_candidate=True, **flags)
+    elif direct:
+        _launch(key + "_direct", lib.volpath_primal_direct_launch, ctypes.byref(params),
+                from_state, _stream(dev), **flags)
     else:
-        _launch("volpath_primal", lib.volpath_primal_launch, ctypes.byref(params),
-                _stream(dev), **flags)
+        counter, util = persistent_args(dev, return_stats)
+        _launch(key, lib.volpath_primal_launch, ctypes.byref(params), from_state,
+                counter.data_ptr(), _ptr(util), _stream(dev), **flags)
     if return_stats:
         stats = {"dim": _u32(dims), "steps": steps, "cls": cls}
         if kc is not None:
             stats.update({k: kc[:, i] for i, k in enumerate(K7_COUNTERS)})
+        if util is not None:
+            stats["util"] = util
         return L, escaped, stats
     return L, escaped
 
@@ -462,7 +518,10 @@ def adjoint_params(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
     ``(params, res, stats)``; ``stats`` holds per-lane int32 counters:
     ``dim`` (primary draws), ``alt_dim`` (alt draws), ``steps``,
     ``events`` (n, 2) (real collisions, replay collisions that scatter) and
-    ``cls`` (n, 5) (K6's counters, :data:`CLS_COUNTERS`)."""
+    ``cls`` (n, 5) (K6's counters, :data:`CLS_COUNTERS`).  No value is
+    read back from the device (the emitter's and the medium's constants
+    come from their host copies), so a launch does not wait for the
+    card."""
     m = scene.medium
     n, dev = o.shape[0], o.device
     res = _empty_reservoir(n, dev)
@@ -488,13 +547,17 @@ def adjoint_params(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
 
 
 def adjoint_walk_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
-                        state_in, k_cand: int = 1):
+                        state_in, k_cand: int = 1, direct: bool = False,
+                        return_util: bool = False):
     """The adjoint's path-replay walk (``volpath_flat.adjoint_walk``):
     returns ``(acc, res, stats)``, the kernel's stats with ``events`` too
-    (see :func:`adjoint_params`).  On ``cuda`` tensors it launches
-    ``volpath_adjoint_kernel``, which adds into a zero accumulator with
-    atomics.  It replays K=1 paths only: ``k_cand`` other than 1 raises, as
-    the reference's ``_make_call`` asserts."""
+    (see :func:`adjoint_params`) and, with ``return_util``, ``util``, the
+    persistent kernel's per-warp counters (:data:`UTIL_COUNTERS`).  On
+    ``cuda`` tensors it launches the persistent ``volpath_adjoint_kernel``,
+    which adds into a zero accumulator with atomics, and with ``direct`` the
+    one-ray-per-thread kernel that it replaced (for comparison; no
+    ``util``).  It replays K=1 paths only: ``k_cand`` other than 1 raises,
+    as the reference's ``_make_call`` asserts."""
     if k_cand != 1:
         raise ValueError("K-candidate batching is primal only: the adjoint replays "
                          "k_cand=1 paths")
@@ -503,8 +566,17 @@ def adjoint_walk_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
                                          deferred=True)
     acc = init_accum(scene.medium, need_emission=False)
     a, res, stats = adjoint_params(cfg, scene, o, d, seed, dL, state_in, acc)
-    _launch("volpath_adjoint", _load("adjoint").volpath_adjoint_launch, ctypes.byref(a),
-            _stream(o.device), classified=a.P.Ds > 0, deferred=a.P.nee_H > 0)
+    lib = _load("adjoint")
+    flags = dict(classified=a.P.Ds > 0, deferred=a.P.nee_H > 0)
+    if direct:
+        _launch("volpath_adjoint_direct", lib.volpath_adjoint_direct_launch, ctypes.byref(a),
+                _stream(o.device), **flags)
+    else:
+        counter, util = persistent_args(o.device, return_util)
+        _launch("volpath_adjoint", lib.volpath_adjoint_launch, ctypes.byref(a),
+                counter.data_ptr(), _ptr(util), _stream(o.device), **flags)
+        if util is not None:
+            stats["util"] = util
     return acc, res, {k: _u32(v) if k in ("dim", "alt_dim") else v
                       for k, v in stats.items()}
 

@@ -13,6 +13,7 @@ the same rays and paths.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -64,10 +65,17 @@ def _expand_rays(cameras: Cameras, sensor_idx, pixels, film_size, spp: int,
     pix = pixels[rep].to(torch.float32)
     s = make_sampler(subpixel_seed, n_lanes=B * spp, device=dev)
     offset, _ = next_2d(s)
-    fs = torch.tensor(film_size, dtype=torch.float32, device=dev)
     # XLA folds the division by the constant film size into a multiplication
     # by its float32 reciprocal; the port does the same
-    return sample_rays(cameras, sidx, (pix + offset) * (1.0 / fs))
+    return sample_rays(cameras, sidx, (pix + offset) * _inv_film(tuple(film_size), dev))
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_film(film_size, device) -> torch.Tensor:
+    """1 / film size, float32 (2,) on ``device``, made once: a copy from
+    the host waits for the device, and the forward's chunks must not wait
+    between their launches."""
+    return 1.0 / torch.tensor(film_size, dtype=torch.float32, device=device)
 
 
 @dataclass(frozen=True)
@@ -266,13 +274,16 @@ def render_batch(settings: RenderSettings, params: MediumParams,
 @torch.no_grad()
 def render_image(settings: RenderSettings, params: MediumParams,
                  emitter: Emitter, cameras: Cameras, sensor: int, seed=0,
-                 spp: int = None, chunk: int = 1 << 20,
+                 spp: int = None, chunk: int = None,
                  medium_to_world: np.ndarray = None) -> np.ndarray:
     """Full-frame render of one sensor, in chunks of about ``chunk`` rays
-    with per-chunk seed ``seed + first_pixel`` as in the reference.  The
+    (None: ``UIVR_RENDER_CHUNK``, default 2**20, read per call) with
+    per-chunk seed ``seed + first_pixel`` as in the reference.  The
     device is that of ``params``.  Returns (H, W, 3) numpy.  As in the
     reference, every chunk reads ``UIVR_KCAND`` and ``settings.k_cand`` is
     not used (ROADMAP C3)."""
+    if chunk is None:
+        chunk = int(os.environ.get("UIVR_RENDER_CHUNK", 1 << 20))
     st = settings
     W, H = st.film_size
     spp = spp or st.spp

@@ -34,6 +34,14 @@ _INV_TWO_PI = 1.0 / _TWO_PI
 _INV_PI = 1.0 / math.pi
 
 
+def constant_emitter(radiance, device=None) -> "ConstantEmitter":
+    """A constant emitter of ``radiance`` (3 values) with its host copies."""
+    r = np.array(radiance, np.float32).reshape(3)
+    w = r / np.float32(_INV_FOUR_PI)   # the bits of ConstantEmitter.weight
+    return ConstantEmitter(radiance=torch.as_tensor(r, device=device),
+                           host=(tuple(r.tolist()), tuple(w.tolist())))
+
+
 def _square_to_uniform_sphere(u: torch.Tensor) -> torch.Tensor:
     z = 1.0 - 2.0 * u[:, 0]
     r = fmath.sqrt(torch.clamp(fma(-z, z, 1.0), min=0.0))
@@ -43,6 +51,9 @@ def _square_to_uniform_sphere(u: torch.Tensor) -> torch.Tensor:
 
 class ConstantEmitter(NamedTuple):
     radiance: torch.Tensor  # (3,) float32
+    # host copies (radiance, weight) of the float32 values, which a kernel
+    # launch reads without a device sync (:func:`constant_emitter`)
+    host: Optional[Tuple[Tuple[float, ...], Tuple[float, ...]]] = None
 
     @property
     def weight(self) -> torch.Tensor:
@@ -77,6 +88,9 @@ class EnvmapEmitter(NamedTuple):
     to_world: torch.Tensor   # (3, 3)
     # coarse sampling proxy of a map above 8192 texels (make_envmap), or None
     nee: Optional["EnvmapEmitter"] = None
+    # host copy of to_world (9 floats, row-major), which a kernel launch
+    # reads without a device sync
+    to_world_host: Optional[Tuple[float, ...]] = None
 
     def _dir_to_uv(self, d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         dl = transform_dirs(self.to_world.T, d)   # world -> local: d @ M
@@ -252,8 +266,8 @@ def make_envmap(data: np.ndarray, to_world: np.ndarray = None,
     tp32 = texel_pmf.astype(np.float32)
     alias_tab = np.stack([prob, alias.astype(np.float32), tp32, tp32[alias]],
                          axis=-1).astype(np.float32)
-    if to_world is None:
-        to_world = np.eye(3, dtype=np.float32)
+    to_world = np.eye(3, dtype=np.float32) if to_world is None else \
+        np.asarray(to_world, np.float32)
     nee = nee_proxy(data, to_world, nee_max_texels, device)
 
     def t(x):
@@ -262,4 +276,5 @@ def make_envmap(data: np.ndarray, to_world: np.ndarray = None,
     data_t = t(data)
     return EnvmapEmitter(data=data_t, row_pmf=t(row_pmf), cond_pmf=t(cond_pmf),
                          alias_tab=t(alias_tab), flat_data=data_t.reshape(-1, 3),
-                         to_world=t(to_world), nee=nee)
+                         to_world=t(to_world), nee=nee,
+                         to_world_host=tuple(to_world.reshape(-1).tolist()))

@@ -12,7 +12,8 @@ without reading the grid.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import os
+from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -39,8 +40,10 @@ class MediumConfig:
     # (the reference's kernel-resident budget).  The supergrid decides
     # where walks cross cells, and each crossing consumes two draws, so the
     # same budget keeps the port's paths identical to the reference's.
-    # 0 keeps the requested factor.
-    kernel_majorant_max_cells: int = 2048
+    # 0 keeps the requested factor.  UIVR_KERNEL_TM sets it, read when a
+    # config is made, as the reference reads it.
+    kernel_majorant_max_cells: int = field(
+        default_factory=lambda: int(os.environ.get("UIVR_KERNEL_TM", 2048)))
     # Cell budget of the subcell classification grid (the reference's
     # UIVR_CLASS_CELLS, default 8192); 0 turns classification off.  It
     # changes no path, only which events skip the sigma fetch.
@@ -56,6 +59,9 @@ class Medium(NamedTuple):
     phase_g: float               # float32 value
     grid: torch.Tensor            # (D, H, W, 4) [sigma (unscaled), albedo]
     sub: Optional[torch.Tensor]   # (Ds, Hs, Ws) scaled sigma bound, or None (off)
+    # host copy of world_to_local[:3, :4] (12 floats, row-major), which a
+    # kernel launch reads without a device sync
+    w2l: Tuple[float, ...]
 
 
 def _effective_factor(requested: int, shape: Tuple[int, ...]) -> int:
@@ -113,7 +119,7 @@ def finalize_medium(params: MediumParams, cfg: MediumConfig,
         world_to_local=torch.as_tensor(inv, device=dev),
         majorant_grid=maj.contiguous(),
         phase_g=float(np.float32(cfg.phase_g)),
-        grid=grid.contiguous(), sub=sub)
+        grid=grid.contiguous(), sub=sub, w2l=tuple(inv[:3, :4].reshape(-1).tolist()))
 
 
 def sigma_albedo_at(m: Medium, p: torch.Tensor):
