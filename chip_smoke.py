@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``uivr_tpu_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # every phase below
-    python3 chip_smoke.py --quick    # phase 1, then phase 5a without times
+    python3 chip_smoke.py --quick    # phase 1, then phases 5a and 5b's lane
+                                     # checks without times
     python3 chip_smoke.py --sweep    # every phase, with the sweeps and A/B
                                      # runs that chose the persistent kernels
 
@@ -10,11 +11,14 @@ Phases, one JSON line each; any failure exits nonzero before the last line.
 K6 (subcell classification) is on by default in every walking kernel; "K6
 off" is the same kernel on the same medium without its subcell table, which
 must give the same result.  The walking kernels (``volpath_primal``, its
-path-state entry and ``volpath_adjoint``) are persistent: lanes take rays
-from a work counter, a new one as soon as theirs ends.  The
-one-ray-per-thread kernels they replaced run only here, through the
-wrappers' ``direct=True``, as the A/B baseline and the bit-for-bit
-reference on the card:
+path-state entry, its K7 form, ``volpath_adjoint`` and the DRT term's
+NEE) are persistent: lanes take rays from a work counter, a new one as
+soon as theirs ends.  The one-ray-per-thread kernels they replaced run
+only here, through the wrappers' ``direct=True``, as the A/B baseline and
+the bit-for-bit reference on the card.  The plain twins of phases 3, 6
+and 9b run after their phase's times are taken, two at a time: every
+other one in a worker process (``run_twins``; the worker shares the card,
+so nothing is timed meanwhile):
 
 1. device: the card (``nvidia-smi`` name and power limit on a line of its
    own), torch and CUDA versions, and the kernels' nvcc builds (one nvcc
@@ -60,13 +64,19 @@ reference on the card:
    package's build.  The persistent kernels' lanes
    equal the twin's wherever phases 3-9b compare the main path's
    kernels with their twins.  Phases 3 and 9b hold the persistent primal
-   against the direct one on their random-pixel rays too.
-5b. K7 (K-candidate batching).  k7_chunk: ``volpath_primal_k_kernel`` at
-   K=4 against the K=4 twin on every lane of janga's chunk (radiance bit
-   for bit, escapes, draws and the K7 counters), the kernel at K = 1, 2,
-   4, 8 on janga's and dust-devil's chunks (CUDA events, median of 3) with
-   each K's counters, the twin's time and ptxas' report of the K7
-   instantiations.  k7_unbiased: janga-smoke and dust-devil, sensor 0 at
+   against the direct one on their random-pixel rays too.  The DRT term's
+   NEE on the replay's reservoirs: the persistent ``drt_nee_kernel``
+   against the one-thread-per-vertex one (nee, trips_b and K_B bit for
+   bit; times of the NEE launch in turns).
+5b. K7 (K-candidate batching).  k7_chunk: the persistent
+   ``volpath_primal_k_kernel`` against the one-ray-per-thread
+   ``volpath_primal_k_direct_kernel`` at K = 2, 4, 8 on every lane of
+   janga's and dust-devil's chunks (radiance bit for bit, escapes, draws,
+   steps and the K7 counters), the lane utilization of both and their
+   times in turns, K=1's time (median of 3), each K's counters; the K=4
+   kernel against the K=4 twin on every lane of janga's chunk and the
+   twin's time; ptxas' registers and spills of every K7 instantiation.
+   k7_unbiased: janga-smoke and dust-devil, sensor 0 at
    64 spp, under UIVR_KCAND=4 and 1 in turns: K=4 within 4 standard
    errors of K=1 per channel (paired per-pixel test), K7 launched at K=4
    only.
@@ -111,9 +121,11 @@ reference on the card:
    against the twin keyed by their ray ids (``lane0``), >= 0.90 of lanes,
    and the step's gradients finite and nonzero; ``drt_backward_kernel``
    against ``volpath_flat._drt_backward_flat`` on all 524,288 reservoirs
-   of the step: equal
-   wavefront maxima K_A and K_B, per-lane t_sel, wsum and found equal on
-   >= 0.90 of lanes, gradients' relative L1 <= 1e-2.  The adjoint slice's
+   of the step: equal wavefront maxima K_A and K_B, per-lane t_sel, wsum
+   and found equal on >= 0.90 of lanes, gradients' relative L1 <= 1e-2;
+   and the term with the persistent NEE kernel against the
+   one-thread-per-vertex one on the same reservoirs (nee, trips_b and K_B
+   bit for bit, the NEE launch timed in turns before the worker starts).  The adjoint slice's
    twin runs in a worker process beside the other two (``submit_twin``),
    and every twin runs under ``torch.inference_mode``
    (``twins_without_autograd``): the same ops, less host time per op.
@@ -162,8 +174,11 @@ reference on the card:
    with K3 on the XML render's first chunk, its error and plain time on
    that chunk; K7's row (``k_candidate_batching``) the K=4 kernel's time
    and bound on janga's chunk with the other K's times, its launches from
-   k7_train.  ``launches_per_train_step`` is the counters' growth over
-   the main run's first recorded step.
+   k7_train; the one-ray-per-thread K7 and DRT NEE kernels as
+   ``comparison_only`` rows (0 launches on the main path).  With
+   UIVR_KCAND unset the main path must launch no K7 kernel.
+   ``launches_per_train_step`` is the counters' growth over the main
+   run's first recorded step.
 11. the last line: {"ok": true, "device": {...}}.
 
 ``bound_ms`` is the larger of the bytes the function must move (each input
@@ -518,16 +533,17 @@ def phase_adjoint(card, dev, vs, janga, dust, cube, rays_of):
     """The adjoint walk (after one replay primal each): the kernel with K6
     on against K6 off on the same inputs (draws and reservoir depth equal on
     every lane, gradients within a relative L1 of 1e-4, the atomics' order
-    aside), and against the twin where ``need`` is given."""
+    aside), and against the twin where ``need`` is given.  The twins run
+    after every kernel time is taken, two at a time (run_twins)."""
     import torch
     from uivr_tpu_torch.config import get_int_config
-    from uivr_tpu_torch.integrators import volpath_flat
     rs = np.random.RandomState(20261017)
     runs = [("janga-smoke", janga, "volpathsimple-drt", {}, 8192, 0.90),
             ("janga-smoke", janga, "volpathsimple-basic", {"shadow_rr": 0.05}, 8192, 0.90),
             ("dust-devil", dust, "volpathsimple-drt", {}, 8192, None),
             ("tiny-cube", cube, "volpathsimple-drt", {}, 16384, 0.95),
             ("tiny-cube", cube, "volpathsimple-drt", {"use_nee": False}, 16384, 0.95)]
+    checked = []
     for name, (preset, b, sc), integ, kw, n, need in runs:
         cfg = dataclasses.replace(get_int_config(integ).create(max_depth=preset.max_depth), **kw)
         off = no_cls(sc)
@@ -549,12 +565,13 @@ def phase_adjoint(card, dev, vs, janga, dust, cube, rays_of):
                "cls": cls_counts(st_k["cls"]), "kernel_ms": k_ms, "kernel_ms_cls_off": off_ms,
                "events": int(st_k["steps"].sum()), "card": card}
         bad = min(on_off.values()) < 1.0 or max(on_off_rel.values()) > 1e-4
+        checked.append((name, integ, kw, need, rec, bad, acc_k, res_k, st_k,
+                        (cfg, sc, o, d, seed, dL)))
+    twins = iter(run_twins([("adjoint_twin", (0, 1, 2), args, {})
+                            for *_, need, _, _, _, _, _, args in checked if need is not None]))
+    for name, integ, kw, need, rec, bad, acc_k, res_k, st_k, _ in checked:
         if need is not None:
-            t0 = time.perf_counter()
-            Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed, deferred=True)
-            acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt,
-                                                           deferred=True)
-            torch.cuda.synchronize()
+            (acc_t, res_t, st_t), plain_ms = next(twins)
             agree = {"dim": equal_frac(st_k["dim"], st_t["dim"]),
                      "alt_dim": equal_frac(st_k["alt_dim"], st_t["alt_dim"]),
                      "reservoir_depth": equal_frac(res_k.depth, res_t.depth)}
@@ -564,7 +581,7 @@ def phase_adjoint(card, dev, vs, janga, dust, cube, rays_of):
                         "max_abs_err": max(float((acc_k.sigma - acc_t.sigma).abs().max()),
                                            float((acc_k.albedo - acc_t.albedo).abs().max())),
                         "grad_abs_sum": float(acc_t.sigma.abs().sum()),
-                        "plain_ms": (time.perf_counter() - t0) * 1e3})
+                        "plain_ms": plain_ms})
             bad = bad or min(agree.values()) < need or max(rel.values()) > 1e-2 \
                 or not rec["grad_abs_sum"] > 0
         emit(rec)
@@ -620,17 +637,30 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _twin_job(name, payload, keep):
-    """In the worker: ``volpath_flat.<name>(*args, **kw)`` under inference
-    mode; returns the bytes of the items ``keep`` of its result and its
-    milliseconds."""
-    import torch
+def adjoint_twin(cfg, sc, o, d, seed, dL, deferred=True):
+    """Phase 6's twin: the twin's replay primal, then its adjoint walk from
+    that radiance: (accumulator, reservoir, stats)."""
     from uivr_tpu_torch.integrators import volpath_flat
+    Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed, deferred=deferred)
+    return volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt, deferred=deferred)
+
+
+def _twin_fn(name):
+    """Twin ``name``: a ``volpath_flat`` entry point, or adjoint_twin."""
+    from uivr_tpu_torch.integrators import volpath_flat
+    return adjoint_twin if name == "adjoint_twin" else getattr(volpath_flat, name)
+
+
+def _twin_job(name, payload, keep):
+    """In the worker: twin ``name`` on ``payload``'s (args, kw) under
+    inference mode; returns the bytes of the items ``keep`` of its result
+    and its milliseconds."""
+    import torch
     args, kw = _loads(payload)
     _sync()
     t0 = time.perf_counter()
     with torch.inference_mode():
-        out = getattr(volpath_flat, name)(*args, **kw)
+        out = _twin_fn(name)(*args, **kw)
     _sync()
     ms = (time.perf_counter() - t0) * 1e3
     return _dumps(tuple(out[i] for i in keep)), ms
@@ -653,6 +683,28 @@ def submit_twin(name, keep, *args, **kw):
 def twin_result(fut):
     data, ms = fut.result()
     return _loads(data), ms
+
+
+def run_twins(jobs):
+    """Twin jobs ``(name, keep, args, kw)``, two at a time: every other one
+    in the worker, the rest here meanwhile.  Returns ``(the items keep of
+    its result, ms)`` for each, in order.  Nothing may be timed on the card
+    while this runs: the worker's launches share it."""
+    import torch
+    futures = {i: submit_twin(name, keep, *args, **kw)
+               for i, (name, keep, args, kw) in enumerate(jobs) if i % 2 == 1}
+    out = {}
+    for i, (name, keep, args, kw) in enumerate(jobs):
+        if i in futures:
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            res = _twin_fn(name)(*args, **kw)
+        torch.cuda.synchronize()
+        out[i] = (tuple(res[k] for k in keep), (time.perf_counter() - t0) * 1e3)
+    out.update({i: twin_result(f) for i, f in futures.items()})
+    return [out[i] for i in range(len(jobs))]
 
 
 def _check_drt_twin(cfg, sc, dr):
@@ -680,6 +732,43 @@ def _check_drt_twin(cfg, sc, dr):
     return acc_t, p, ms, (t1 - t0) * 1e3
 
 
+def drt_nee_turns(vs, cfg, sc, seed, res, adjoint, measure=True):
+    """The delayed DRT term on one step's reservoirs with the persistent
+    NEE kernel and with the one-thread-per-vertex one it replaced
+    (``direct``): nee, trips_b and K_B bit for bit (with the walk's K_A and
+    the resumed paths), and with ``measure`` the NEE launch's time in turns
+    (persistent, direct, direct, persistent) from CUDA events around it
+    (``volpath_step.TIMINGS``)."""
+    import torch
+    from uivr_tpu_torch.scene.gradients import init_accum
+
+    def term(direct, stats=True):
+        return vs.drt_backward_kernel(cfg, sc, seed, res, adjoint,
+                                      init_accum(sc.medium, need_emission=False),
+                                      return_stats=stats, direct=direct)
+    (_, p), (_, d) = term(False), term(True)
+    eq = {"nee": torch.equal(p["nee"], d["nee"]), "trips_b": torch.equal(p["trips_b"], d["trips_b"]),
+          "K_B": p["k_b"] == d["k_b"], "K_A": p["k_a"] == d["k_a"],
+          "path_state_active": torch.equal(p["path_state"].active, d["path_state"].active)}
+    rec = {"equal_to_direct": eq, "K_B": p["k_b"], "walks": int((p["trips_b"] > 0).sum()),
+           "trips": int(p["trips_b"].sum())}
+    if measure:
+        saved, vs.TIMINGS = vs.TIMINGS, []
+        try:
+            for direct in (False, True, True, False):
+                term(direct, stats=False)
+            torch.cuda.synchronize()
+            t = [a.elapsed_time(b) for key, a, b in vs.TIMINGS
+                 if key in ("volpath_drt_nee", "volpath_drt_nee_direct")]
+        finally:
+            vs.TIMINGS = saved
+        rec.update({"ms_persistent": (t[0] + t[3]) / 2, "ms_direct": (t[1] + t[2]) / 2,
+                    "turns_ms": t})
+    if not all(eq.values()):
+        raise RuntimeError(f"drt_nee: the persistent kernel differs from the direct one: {eq}")
+    return rec
+
+
 def check_step(card, vs, tag, step):
     """A recorded training step's kernels against the twins, at the shapes
     the step gave them: the adjoint call's per-lane primary draws, alt
@@ -696,6 +785,9 @@ def check_step(card, vs, tag, step):
     cfg, sc = a["cfg"], a["scene"]
     n = a["o"].shape[0]
     sl = slice(n - SLICE, n)
+    # timed before the worker starts (it shares the card)
+    nee = drt_nee_turns(vs, cfg, sc, dr["seed"], dr["res"], dr["adjoint"]) if cfg.use_nee \
+        else None
     adj_twin = submit_twin("adjoint_walk", (1, 2), cfg, sc, a["o"][sl].clone(),
                            a["d"][sl].clone(), a["seed"], a["dL"][sl].clone(),
                            a["L"][sl].clone(), lane0=n - SLICE, deferred=True)
@@ -734,7 +826,7 @@ def check_step(card, vs, tag, step):
     rec = {"phase": "drt", "step": tag, "reservoirs": n,
            "vertices": int((dr["res"].active & k["found"]).sum()),
            "K_A": k["k_a"], "K_B": k["k_b"], "recursive_cls": cls_counts(k["rec_stats"]["cls"]),
-           "card": card}
+           "nee_persistent_vs_direct": nee, "card": card}
     acc_t, p, drt_plain_ms, drt_plain_total_ms = drt_twin
     both = k["path_state"].active & p["path_state"].active
     agree = {f: equal_frac(k[f], p[f]) for f in ("t_sel", "wsum", "found")}
@@ -790,35 +882,40 @@ def phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw=None, checkpoi
         del os.environ["UIVR_KCAND"]
 
 
-def step_turns(vs, loop, run, idx):
+def step_turns(vs, loop, run, idx, k7_only=False):
     """CUDA-event time (ms) of step ``idx`` of ``run()`` (a run_optimization)
     with the one-ray-per-thread kernels and with the persistent ones in
     turns (direct, persistent, persistent, direct); each run must have
-    launched only the walking kernels of its kind."""
+    launched only the walking kernels of its kind.  ``k7_only``: only the
+    K7 launches change kind (a step under UIVR_KCAND > 1)."""
     import contextlib
+    walking = ("volpath_primal_k_direct", "k_candidate") if k7_only else (
+        "volpath_primal_direct", "volpath_adjoint_direct", "volpath_primal", "volpath_adjoint")
     t, counts = [], []
     for direct in (True, False, False, True):
-        with (Direct(vs) if direct else contextlib.nullcontext()), StepRecorder(vs, loop) as r:
+        with (Direct(vs, k7_only) if direct else contextlib.nullcontext()), \
+                StepRecorder(vs, loop) as r:
             run()
         st = r.steps[idx]
         t.append(st["start"].elapsed_time(st["end"]))
         c = st["counts"]
         counts.append(c)
-        kinds = [c["volpath_primal_direct"], c["volpath_adjoint_direct"]] if direct else \
-            [c["volpath_primal"], c["volpath_adjoint"]]
-        others = [c["volpath_primal"], c["volpath_adjoint"]] if direct else \
-            [c["volpath_primal_direct"], c["volpath_adjoint_direct"]]
+        if k7_only:    # a direct K7 launch counts as a K7 launch too
+            kinds = [c["volpath_primal_k_direct"]] if direct else [c["k_candidate"]]
+            others = [c["k_candidate"] - c["volpath_primal_k_direct"]] if direct else \
+                [c["volpath_primal_k_direct"]]
+        else:
+            kinds = [c["volpath_primal_direct"], c["volpath_adjoint_direct"]] if direct else \
+                [c["volpath_primal"], c["volpath_adjoint"]]
+            others = [c["volpath_primal"], c["volpath_adjoint"]] if direct else \
+                [c["volpath_primal_direct"], c["volpath_adjoint_direct"]]
         if min(kinds) == 0 or max(others) > 0:
             raise RuntimeError(f"step A/B: a {'direct' if direct else 'persistent'} step "
                                f"launched other kernels: {c}")
     return {"direct_ms": (t[0] + t[3]) / 2, "persistent_ms": (t[1] + t[2]) / 2, "turns_ms": t,
             "speedup": (t[0] + t[3]) / (t[1] + t[2]),
-            "launches_direct": {k: counts[0][k] for k in ("volpath_primal_direct",
-                                                          "volpath_primal_state_direct",
-                                                          "volpath_adjoint_direct")},
-            "launches_persistent": {k: counts[1][k] for k in ("volpath_primal",
-                                                              "volpath_primal_state",
-                                                              "volpath_adjoint")}}
+            "launches_direct": {k: counts[0][k] for k in walking},
+            "launches_persistent": {k: counts[1][k] for k in walking}}
 
 
 def trace_step(vs, loop, run):
@@ -912,6 +1009,8 @@ def _phase_train(card, vs, scene, out_dir, n_iter, ref_spp, opt_kw, checkpoints,
     turns = {}
     if "truth" in ab:
         turns["truth"] = step_turns(vs, loop, run_truth, 0)
+    if "truth_k7" in ab:
+        turns["truth_k7"] = step_turns(vs, loop, run_truth, 0, k7_only=True)
     if "start" in ab:
         two = dataclasses.replace(one, name=f"{name}/ab-start", n_iter=2)
         turns["start"] = step_turns(vs, loop, lambda: loop.run_optimization(
@@ -1236,55 +1335,95 @@ def k7_bound(o, sc, c):
     return req, gather
 
 
-def k7_sweep(vs, cfg, sc, o, d, seed):
-    """The primal kernel at K = 1, 2, 4, 8 on one set of rays: each K's
-    outputs and stats, and its time (CUDA events, median of 3)."""
+def k7_runs(vs, cfg, sc, o, d, seed, measure=True):
+    """K7 on one set of rays at K = 2, 4, 8, the persistent kernel against
+    the one-ray-per-thread one: every lane equal (radiance bit for bit,
+    escapes, draws, steps, the K7 counters), the lane utilization of both
+    (the direct kernel's from its per-lane steps) and, with ``measure``,
+    both times in turns (direct, persistent, persistent, direct), and the
+    K=1 kernel's time (median of 3).  {K: record}; "out" holds the
+    persistent kernel's outputs and stats."""
     import statistics
 
     import torch
     runs = {}
-    for k in K7_KS:
-        out = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True, k_cand=k)
+    if measure:
+        out = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True)
         torch.cuda.synchronize()
-        ms = [cuda_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed, k_cand=k), 1)
+        ms = [cuda_ms(lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed), 1)
               for _ in range(3)]
-        runs[k] = {"out": out, "ms": statistics.median(ms), "ms_runs": ms}
+        runs[1] = {"out": out, "ms": statistics.median(ms), "ms_runs": ms,
+                   "utilization": util_share(out[2]["util"])}
+    for k in K7_KS[1:]:
+        per = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True, k_cand=k)
+        direct = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True, k_cand=k,
+                                         direct=True)
+        torch.cuda.synchronize()
+        eq, _ = k7_equal(*per, *direct)
+        eq["steps"] = torch.equal(per[2]["steps"], direct[2]["steps"])
+        rec = {"out": per, "equal_to_direct": eq,
+               "utilization": util_share(per[2]["util"]),
+               "utilization_direct": warp_utilization(direct[2]["steps"])}
+        if measure:
+            d_ms, p_ms, t = turns_ms(
+                lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed, k_cand=k, direct=True),
+                lambda: vs.sample_primal_kernel(cfg, sc, o, d, seed, k_cand=k))
+            rec.update({"ms": p_ms, "ms_direct": d_ms, "turns_ms": t, "speedup": d_ms / p_ms})
+        runs[k] = rec
+        if not all(eq.values()):
+            raise RuntimeError(f"K7 at K={k}: the persistent kernel differs from the direct "
+                               f"one: {eq}")
     return runs
 
 
-def phase_k7_chunk(card, vs, cfg, sc, o, d, seed, dust=None):
-    """K7 at the render's chunk (janga-smoke, 2**20 rays): the kernel at K=4
-    against the K=4 twin on every lane, the kernel's times at K = 1, 2, 4, 8
-    (CUDA events, median of 3) with each K's counters, the twin's time and
-    ptxas' report of the K7 instantiations; ``dust`` (scene, o, d): the same
-    sweep on dust-devil's chunk, without the twin."""
+def k7_summary(runs):
+    """The JSON-able part of k7_runs' records, with each K's counters."""
+    return {k: dict({f: v for f, v in r.items() if f != "out"},
+                    **({"counts": k7_counts(r["out"][2])} if k > 1 else {}))
+            for k, r in runs.items()}
+
+
+def k7_ptxas(vs):
+    """ptxas' registers and spills of every K7 instantiation (persistent
+    and direct) and of the K=1 persistent kernel."""
+    return {k: v for k, v in ptxas_report(vs.BUILD["primal"]["log"]).items()
+            if "primal_k" in k or "volpath_primal_kernel" in k}
+
+
+def phase_k7_chunk(card, vs, cfg, sc, o, d, seed, dust=None, measure=True):
+    """K7 at the render's chunk (janga-smoke, 2**20 rays): the persistent
+    kernel against the one-ray-per-thread one at K = 2, 4, 8 on every lane,
+    their utilizations and times in turns, the K=1 kernel's time, each K's
+    counters; the K=4 kernel against the K=4 twin on every lane and the
+    twin's time; ptxas' report of every K7 instantiation; ``dust`` (scene,
+    o, d): the same on dust-devil's chunk, without the twin.  Without
+    ``measure`` (``--quick``): the lane checks only, no twin."""
     import torch
     from uivr_tpu_torch.integrators import volpath_flat
-    runs = k7_sweep(vs, cfg, sc, o, d, seed)
+    runs = k7_runs(vs, cfg, sc, o, d, seed, measure)
+    rec = {"phase": "k7_chunk", "scene": "janga-smoke", "rays": o.shape[0],
+           "runs": k7_summary(runs), "ptxas": k7_ptxas(vs), "card": card}
+    if dust is not None:
+        dsc, dout, dd = dust
+        rec["dust_devil"] = {"rays": dout.shape[0],
+                             "runs": k7_summary(k7_runs(vs, cfg, dsc, dout, dd, seed, measure))}
+    if not measure:
+        emit(rec)
+        return rec
     t0 = time.perf_counter()
     twin = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True, deferred=True,
                                       k_cand=4)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
     eq, err = k7_equal(*runs[4]["out"], *twin)
-    n = o.shape[0]
     counts = {k: k7_counts(r["out"][2]) for k, r in runs.items() if k > 1}
     (b_ms, b_by), g_ms = k7_bound(o, sc, counts[4])
-    ptx = {k: v for k, v in ptxas_report(vs.BUILD["primal"]["log"]).items()
-           if "primal_k_kernel" in k or "volpath_primal_kernel" in k}
-    rec = {"phase": "k7_chunk", "scene": "janga-smoke", "rays": n, "equal_to_twin": eq,
-           "max_abs_err": err, "ms": {k: r["ms"] for k, r in runs.items()},
-           "ms_runs": {k: r["ms_runs"] for k, r in runs.items()}, "plain_ms": p_ms,
-           "k1_steps": int(runs[1]["out"][2]["steps"].sum()), "counts": counts,
-           "bound_ms": b_ms, "bound_by": b_by, "gather_bound_ms": g_ms,
-           "means": {k: r["out"][0].mean(0).tolist() for k, r in runs.items()},
-           "ptxas": ptx, "card": card}
-    if dust is not None:
-        dsc, dout, dd = dust
-        druns = k7_sweep(vs, cfg, dsc, dout, dd, seed)
-        rec["dust_devil"] = {"rays": dout.shape[0], "ms": {k: r["ms"] for k, r in druns.items()},
-                             "counts": {k: k7_counts(r["out"][2]) for k, r in druns.items()
-                                        if k > 1}}
+    rec.update({"equal_to_twin": eq, "max_abs_err": err,
+                "ms": {k: r["ms"] for k, r in runs.items()},
+                "ms_direct": {k: r["ms_direct"] for k, r in runs.items() if k > 1},
+                "plain_ms": p_ms, "k1_steps": int(runs[1]["out"][2]["steps"].sum()),
+                "counts": counts, "bound_ms": b_ms, "bound_by": b_by, "gather_bound_ms": g_ms,
+                "means": {k: r["out"][0].mean(0).tolist() for k, r in runs.items()}})
     emit(rec)
     if not all(eq.values()) or err != 0.0:
         raise RuntimeError(f"K7: volpath_primal_k_kernel differs from the K=4 twin: {eq}")
@@ -1359,7 +1498,7 @@ def phase_k7_train(card, vs, janga, out_dir, k1_train):
     import torch
     from uivr_tpu_torch.integrators import volpath_flat
     train, first, truth = phase_train(card, vs, janga, out_dir / "k7", 2, 16, checkpoints=False,
-                                      need=("k_candidate",), k_cand=4)
+                                      need=("k_candidate",), k_cand=4, ab=("truth_k7",))
     per_step = {}
     for tag, step in (("first", first), ("truth", truth)):
         c = step["counts"]
@@ -1391,6 +1530,7 @@ def phase_k7_train(card, vs, janga, out_dir, k1_train):
            "truth_forward_kernels_ms_k1": k1_fwd,
            "truth_step_ms": train["truth_step"]["parts_ms"]["step"],
            "truth_step_ms_k1": k1_train["truth_step"]["parts_ms"]["step"],
+           "truth_step_turns_k7_direct": train["step_turns"]["truth_k7"],
            "truth_loss": train["truth_step"]["loss"], "card": card}
     emit(rec)
     if not all(eq.values()) or err != 0.0:
@@ -1403,20 +1543,15 @@ def phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays, chunk, k1_
     K=4 against the deferred K=4 twin on every lane, the kernel at K=4 and
     K=1 on the render's first chunk (in turns), and the render CLI under
     UIVR_KCAND=4 at 720x620: every walking launch took K3b and K7, no twin
-    ran, the image within 4 standard errors of the K=1 render's."""
+    ran, the image within 4 standard errors of the K=1 render's.  Returns
+    the twin's job (for run_twins) and ``finish(twin result, ms)``, which
+    emits the record and runs the checks."""
     import os
 
-    import torch
     from uivr_tpu_torch.integrators import volpath_flat
     seed = 4242
     o, d = random_pixel_rays(b, 1 << 16)
     Lk, ek, sk = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True, k_cand=4)
-    t0 = time.perf_counter()
-    twin = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True, deferred=True,
-                                      k_cand=4)
-    torch.cuda.synchronize()
-    p_ms = (time.perf_counter() - t0) * 1e3
-    eq, err = k7_equal(Lk, ek, sk, *twin)
     co, cd = chunk
     k4_ms, k1_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, co, cd, 1234, k_cand=4),
                              lambda: vs.sample_primal_kernel(cfg, sc, co, cd, 1234), 2)
@@ -1434,24 +1569,31 @@ def phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays, chunk, k1_
     pair = paired_means(img, k1_render["image"])
     pair["z"] = z_scores(pair)
     W, H = b.film_size
-    rec = {"phase": "k7_xml", "scene": "janga-smoke (XML)", "rays": o.shape[0],
-           "equal_to_twin": eq, "max_abs_err": err, "plain_ms": p_ms,
-           "counts": k7_counts(sk), "chunk_ms": {"k4": k4_ms, "k1": k1_ms},
-           "render": {"spp": 64, "film": [W, H], "rays": W * H * 64, "seconds_k4": dt,
-                      "seconds_k1": k1_render["seconds"], "mrays_per_s_k4": W * H * 64 / dt / 1e6,
-                      "launches": launches, "plain_twin_calls": plain, "pair_k4_k1": pair},
-           "limit_z": 4.0, "card": card}
-    emit(rec)
-    if not all(eq.values()) or err != 0.0:
-        raise RuntimeError(f"K7 with K3b: the kernel differs from the deferred twin: {eq}")
-    if not (launches["volpath_primal"] > 0
-            and launches["volpath_primal"] == launches["deferred_nee"] == launches["k_candidate"]
-            and not any(plain.values())):
-        raise RuntimeError(f"K7 XML render: not every launch took K3b and K7: {launches}, "
-                           f"plain twin calls {plain}")
-    if max(pair["z"]) > 4.0 or not np.isfinite(img).all():
-        raise RuntimeError(f"K7 XML render: K=4 is off the K=1 image: z = {pair['z']}")
-    return rec
+    job = ("sample_primal", (0, 1, 2), (cfg, sc, o, d, seed),
+           dict(return_stats=True, deferred=True, k_cand=4))
+
+    def finish(twin, p_ms):
+        eq, err = k7_equal(Lk, ek, sk, *twin)
+        rec = {"phase": "k7_xml", "scene": "janga-smoke (XML)", "rays": o.shape[0],
+               "equal_to_twin": eq, "max_abs_err": err, "plain_ms": p_ms,
+               "counts": k7_counts(sk), "chunk_ms": {"k4": k4_ms, "k1": k1_ms},
+               "render": {"spp": 64, "film": [W, H], "rays": W * H * 64, "seconds_k4": dt,
+                          "seconds_k1": k1_render["seconds"],
+                          "mrays_per_s_k4": W * H * 64 / dt / 1e6,
+                          "launches": launches, "plain_twin_calls": plain, "pair_k4_k1": pair},
+               "limit_z": 4.0, "card": card}
+        emit(rec)
+        if not all(eq.values()) or err != 0.0:
+            raise RuntimeError(f"K7 with K3b: the kernel differs from the deferred twin: {eq}")
+        if not (launches["volpath_primal"] > 0
+                and launches["volpath_primal"] == launches["deferred_nee"]
+                == launches["k_candidate"] and not any(plain.values())):
+            raise RuntimeError(f"K7 XML render: not every launch took K3b and K7: {launches}, "
+                               f"plain twin calls {plain}")
+        if max(pair["z"]) > 4.0 or not np.isfinite(img).all():
+            raise RuntimeError(f"K7 XML render: K=4 is off the K=1 image: z = {pair['z']}")
+        return rec
+    return job, finish
 
 
 # ------------------------------------------------- persistent scheduling
@@ -1502,18 +1644,21 @@ def finish_variant_builds(jobs):
 
 class Direct:
     """Within: the wrappers' walking launches take the one-ray-per-thread
-    kernels (``direct=True``), for the A/B of a whole training step."""
+    kernels (``direct=True``), for the A/B of a whole training step; with
+    ``k7_only`` only the K7 launches (``k_cand > 1``) do."""
 
-    def __init__(self, vs):
-        self.vs, self.saved = vs, {}
+    def __init__(self, vs, k7_only=False):
+        self.vs, self.k7_only, self.saved = vs, k7_only, {}
 
     def __enter__(self):
-        for name in ("sample_primal_kernel", "adjoint_walk_kernel"):
+        names = ("sample_primal_kernel",) if self.k7_only else ("sample_primal_kernel",
+                                                                 "adjoint_walk_kernel")
+        for name in names:
             fn = getattr(self.vs, name)
             self.saved[name] = fn
 
             def run(*a, _fn=fn, **k):
-                return _fn(*a, direct=True, **k)
+                return _fn(*a, direct=not self.k7_only or k.get("k_cand", 1) > 1, **k)
             setattr(self.vs, name, run)
         return self
 
@@ -1697,8 +1842,12 @@ def phase_persistent(card, vs, dev, janga, dust, render_chunk, variants, measure
     dL = torch.from_numpy(np.random.RandomState(11).rand(n, 3).astype(np.float32) / n).to(dev)
     out["adjoint"], (acc, res, st_adj) = persistent_adjoint(vs, cfg, sc, ao, ad, seed + 1, dL,
                                                             rep[0], measure=measure)
-    _, drt = vs.drt_backward_kernel(cfg, sc, seed + 1, res, _reservoir_get(res) * dL,
+    adjoint = _reservoir_get(res) * dL
+    _, drt = vs.drt_backward_kernel(cfg, sc, seed + 1, res, adjoint,
                                     init_accum(sc.medium, need_emission=False), return_stats=True)
+    out["drt_nee"] = dict(drt_nee_turns(vs, cfg, sc, seed + 1, res, adjoint, measure),
+                          phase="persistent_drt_nee", launch="janga-smoke truth DRT NEE",
+                          reservoirs=n)
     from uivr_tpu_torch.core.rng import sample_tea_32
     rec_seed, _ = sample_tea_32(seed + 1, 0x7177)
     out["state"], _ = persistent_chunk(vs, "janga-smoke truth DRT resume", cfg, sc, None, None,
@@ -1963,17 +2112,46 @@ def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, ab, ass
     out["render"] = rec
 
     # ------------------------------------- K3b against its plain version
+    # the kernels and their times first (random-pixel rays, the render's
+    # chunk, K7), then the four twins two at a time (run_twins), then the
+    # records and their checks
     cfg = get_int_config("volpathsimple-drt").create(max_depth=preset.max_depth)
     seed = 4242
     o, d = random_pixel_rays(b, 1 << 16)
     Lk, ek, sk = vs.sample_primal_kernel(cfg, sc, o, d, seed, return_stats=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True,
-                                            deferred=True)
-    torch.cuda.synchronize()
-    p_ms = (time.perf_counter() - t0) * 1e3
     Lf, _ = vs.sample_primal_kernel(cfg, full_res(sc), o, d, seed)
+    n = 8192
+    ao, ad = random_pixel_rays(b, n)
+    dL = torch.from_numpy(np.random.RandomState(7).rand(n, 3).astype(np.float32) / n).to(dev)
+    La, _ = vs.sample_primal_kernel(cfg, sc, ao, ad, seed)
+    for k in vs.LAUNCHES:
+        vs.LAUNCHES[k] = 0
+    acc_k, res_k, st_k = vs.adjoint_walk_kernel(cfg, sc, ao, ad, seed, dL, La)
+    adj_deferred = vs.LAUNCHES["deferred_nee"]
+    # K3b at the render's chunk: its time against K3's, its bound
+    co, cd = render_chunk(b)
+    seed0 = 1234
+    Lc, ec, ck = vs.sample_primal_kernel(cfg, sc, co, cd, seed0, return_stats=True)
+    torch.cuda.synchronize()
+    k3b_ms, k3_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, co, cd, seed0),
+                              lambda: vs.sample_primal_kernel(cfg, full_res(sc), co, cd, seed0), 2)
+    (b_ms, b_by), g_ms, counts = k3b_chunk_bound(co, sc, ck)
+    # the persistent kernel against the one-ray-per-thread one on this chunk
+    rec, _ = persistent_chunk(vs, "janga-smoke XML render chunk (K3b)", cfg, sc, co, cd, seed0)
+    emit(dict(rec, card=card))
+    out["persistent"] = rec
+    # K7 with K3b on this scene
+    k7_job, k7_finish = phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays,
+                                     (co, cd), k1_render, out_dir)
+    primal_twin, adj_twin, chunk_twin, k7_twin = run_twins([
+        ("sample_primal", (0, 1, 2), (cfg, sc, o, d, seed), dict(return_stats=True,
+                                                                 deferred=True)),
+        ("adjoint_walk", (0, 1, 2), (cfg, sc, ao, ad, seed, dL, La), dict(deferred=True)),
+        ("sample_primal", (0, 1, 2), (cfg, sc, co, cd, seed0), dict(return_stats=True,
+                                                                    deferred=True)),
+        k7_job])
+
+    (Lp, ep, sp), p_ms = primal_twin
     agree = lane_agreement(Lk, Lp)
     mk, mp = Lk.mean(0).tolist(), Lp.mean(0).tolist()
     means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mk, mp))
@@ -1987,19 +2165,7 @@ def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, ab, ass
     if agree < 0.90 or not means_ok:
         raise RuntimeError("K3b: volpath_primal disagrees with the deferred twin")
     out["primal"] = rec
-    n = 8192
-    o, d = random_pixel_rays(b, n)
-    dL = torch.from_numpy(np.random.RandomState(7).rand(n, 3).astype(np.float32) / n).to(dev)
-    Lk, _ = vs.sample_primal_kernel(cfg, sc, o, d, seed)
-    for k in vs.LAUNCHES:
-        vs.LAUNCHES[k] = 0
-    acc_k, res_k, st_k = vs.adjoint_walk_kernel(cfg, sc, o, d, seed, dL, Lk)
-    adj_deferred = vs.LAUNCHES["deferred_nee"]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    acc_t, res_t, st_t = volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lk, deferred=True)
-    torch.cuda.synchronize()
-    adj_plain_ms = (time.perf_counter() - t0) * 1e3
+    (acc_t, res_t, st_t), adj_plain_ms = adj_twin
     agree = {"dim": equal_frac(st_k["dim"], st_t["dim"]),
              "alt_dim": equal_frac(st_k["alt_dim"], st_t["alt_dim"]),
              "reservoir_depth": equal_frac(res_k.depth, res_t.depth)}
@@ -2012,40 +2178,21 @@ def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, ab, ass
     if min(agree.values()) < 0.90 or max(rel.values()) > 1e-2 or adj_deferred != 1 \
             or not rec["grad_abs_sum"] > 0:
         raise RuntimeError("K3b: volpath_adjoint disagrees with the deferred twin")
-
-    # ------- K3b at the render's chunk: against its plain version, K3, bound
-    co, cd = render_chunk(b)
-    seed0 = 1234
-    Lk, ek, ck = vs.sample_primal_kernel(cfg, sc, co, cd, seed0, return_stats=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, co, cd, seed0, return_stats=True,
-                                            deferred=True)
-    torch.cuda.synchronize()
-    p_ms = (time.perf_counter() - t0) * 1e3
-    k3b_ms, k3_ms = on_off_ms(lambda: vs.sample_primal_kernel(cfg, sc, co, cd, seed0),
-                              lambda: vs.sample_primal_kernel(cfg, full_res(sc), co, cd, seed0), 2)
-    (b_ms, b_by), g_ms, counts = k3b_chunk_bound(co, sc, ck)
-    agree = lane_agreement(Lk, Lp)
-    mk, mp = Lk.mean(0).tolist(), Lp.mean(0).tolist()
+    (Lp, ep, sp), p_ms = chunk_twin
+    agree = lane_agreement(Lc, Lp)
+    mk, mp = Lc.mean(0).tolist(), Lp.mean(0).tolist()
     means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mk, mp))
     rec = {"phase": "k3b_chunk", "scene": "janga-smoke (XML)", "rays": co.shape[0],
            "agreement": agree, "need": 0.90, "same_draws": equal_frac(ck["dim"], sp["dim"]),
-           "escaped_equal": equal_frac(ek, ep), "mean_kernel": mk, "mean_plain": mp,
-           "max_abs_err": float((Lk - Lp).abs().max()), "plain_ms": p_ms,
+           "escaped_equal": equal_frac(ec, ep), "mean_kernel": mk, "mean_plain": mp,
+           "max_abs_err": float((Lc - Lp).abs().max()), "plain_ms": p_ms,
            "ms": {"k3b": k3b_ms, "k3": k3_ms}, "card": card}
     emit(rec)
     if agree < 0.90 or not means_ok:
         raise RuntimeError("K3b: volpath_primal disagrees with the deferred twin on the "
                            "render's chunk")
     out["chunk"] = rec
-    # the persistent kernel against the one-ray-per-thread one on this chunk
-    rec, _ = persistent_chunk(vs, "janga-smoke XML render chunk (K3b)", cfg, sc, co, cd, seed0)
-    emit(dict(rec, card=card))
-    out["persistent"] = rec
-    # K7 with K3b on this scene
-    out["k7"] = phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays, (co, cd),
-                             k1_render, out_dir)
+    out["k7"] = k7_finish(*k7_twin)
 
     # ---------------------------------------------------------- unbiasedness
     # K3b and K3 against each other and against the estimator without NEE
@@ -2317,6 +2464,9 @@ def main(argv=None):
         # path's shapes, and the persistent kernels equal to them on every
         # lane; no times
         phase_persistent(card, vs, dev, janga, dust, render_chunk, variants, measure=False)
+        kcfg = get_int_config("volpathsimple-drt").create(max_depth=janga[0].max_depth)
+        phase_k7_chunk(card, vs, kcfg, janga[2], *render_chunk(janga[1]), 1234,
+                       dust=(dust[2], *render_chunk(dust[1])), measure=False)
         phase_xml_chunk_quick(card, vs, dev, render_chunk)
         print(card, flush=True)
         emit({"quick": True, "device": {"platform": "gpu",
@@ -2326,6 +2476,9 @@ def main(argv=None):
     runs = [("janga-smoke", janga, True, 0.90), ("dust-devil", dust, True, 0.90),
             ("tiny-cube", cube, True, 0.95), ("tiny-cube", cube, False, 0.95),
             ("janga-smoke-sparse", sparse, True, None)]
+    # the kernels and their times first, then the twins two at a time (the
+    # worker shares the card: nothing is timed while it runs)
+    checked = []
     for name, (preset, b, sc), nee, need in runs:
         cfg = dataclasses.replace(get_int_config("volpathsimple-basic").create(
             max_depth=preset.max_depth), use_nee=nee)
@@ -2348,12 +2501,14 @@ def main(argv=None):
                "kernel_ms_cls_off": off_ms, "steps": int(sk["steps"].sum()),
                "max_steps_lane": int(sk["steps"].max()), "card": card}
         bad = not all(same.values()) or not all(same_direct.values())
+        fmad_L = run_fmad(cfg, sc, o, d, seed) if name == "janga-smoke" else None
+        checked.append((name, nee, need, cfg, sc, o, d, Lk, ek, sk, cls, rec, bad, fmad_L))
+    twins = iter(run_twins([("sample_primal", (0, 1, 2), (cfg, sc, o, d, seed),
+                             dict(return_stats=True, deferred=True))
+                            for _, _, need, cfg, sc, o, d, *_ in checked if need is not None]))
+    for name, nee, need, cfg, sc, o, d, Lk, ek, sk, cls, rec, bad, fmad_L in checked:
         if need is not None:
-            t0 = time.perf_counter()
-            Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True,
-                                                    deferred=True)
-            torch.cuda.synchronize()
-            p_ms = (time.perf_counter() - t0) * 1e3
+            (Lp, ep, sp), p_ms = next(twins)
             agree = lane_agreement(Lk, Lp)
             mk, mp = Lk.mean(0).tolist(), Lp.mean(0).tolist()
             means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mk, mp))
@@ -2362,8 +2517,8 @@ def main(argv=None):
                         "escaped_equal": (ek == ep).float().mean().item(),
                         "mean_kernel": mk, "mean_plain": mp,
                         "max_abs_err": (Lk - Lp).abs().max().item(), "plain_ms": p_ms})
-            if name == "janga-smoke":
-                rec["agreement_fmad_true"] = lane_agreement(run_fmad(cfg, sc, o, d, seed), Lp)
+            if fmad_L is not None:
+                rec["agreement_fmad_true"] = lane_agreement(fmad_L, Lp)
             bad = bad or agree < need or not means_ok
         emit(rec)
         if bad:
@@ -2550,14 +2705,17 @@ def main(argv=None):
          "walking_kernels_ms": walking, "counts": counts, "on_equals_off": True})
     kernels.append(k3b)
     k7x = xml["k7"]
+    k7_4 = k7_chunk["runs"][4]
     kernels.append(
         {"name": "k_candidate_batching", "route": "cuda",
-         "source": "uivr_tpu_torch/ops/csrc/volpath_lane.cuh",
-         "replaces": "uivr_tpu/ops/volpath_step.py:366",
+         "source": "uivr_tpu_torch/ops/csrc/volpath_primal.cu",
+         "replaces": "uivr_tpu/ops/volpath_step.py:366", "redesigned": "persistent",
          "launches": k7_train["launches"]["k_candidate"],
          "launches_per_train_step": k7_first["counts"]["k_candidate"],
          "max_abs_err": k7_chunk["max_abs_err"], "ms": k7_chunk["ms"][4],
-         "ms_k1": k7_chunk["ms"][1], "ms_by_k": k7_chunk["ms"], "plain_ms": k7_chunk["plain_ms"],
+         "ms_k1": k7_chunk["ms"][1], "ms_by_k": k7_chunk["ms"],
+         "ms_direct_by_k": k7_chunk["ms_direct"], "utilization": k7_4["utilization"],
+         "utilization_direct": k7_4["utilization_direct"], "plain_ms": k7_chunk["plain_ms"],
          "bound_ms": k7_chunk["bound_ms"], "bound_by": k7_chunk["bound_by"],
          "gather_bound_ms": k7_chunk["gather_bound_ms"],
          "discarded_share": k7_chunk["counts"][4]["discarded_share"], "library_ms": None,
@@ -2567,10 +2725,41 @@ def main(argv=None):
          "train_slice_max_abs_err": k7_rec["slice_max_abs_err"],
          "truth_forward_kernels_ms": {"k4": k7_rec["truth_forward_kernels_ms"],
                                       "k1": k7_rec["truth_forward_kernels_ms_k1"]}})
+    kernels.append(
+        {"name": "volpath_primal_k_direct", "route": "cuda",
+         "source": "uivr_tpu_torch/ops/csrc/volpath_primal.cu",
+         "replaces": "uivr_tpu/ops/volpath_step.py:366", "comparison_only": True,
+         "launches": k7_train["launches"]["volpath_primal_k_direct"],
+         "max_abs_err": k7_chunk["max_abs_err"], "ms": k7_chunk["ms_direct"][4],
+         "ms_direct_by_k": k7_chunk["ms_direct"], "plain_ms": k7_chunk["plain_ms"],
+         "bound_ms": k7_chunk["bound_ms"], "bound_by": k7_chunk["bound_by"], "library_ms": None,
+         "utilization": k7_4["utilization_direct"],
+         "shape": f"volpath_primal_k_direct_kernel<4>, {n} rays, janga-smoke render chunk"})
+    if k7_train["launches"]["volpath_primal_k_direct"] != 0:
+        raise RuntimeError("the main path launched volpath_primal_k_direct")
+    nee = check["nee_persistent_vs_direct"]
+    by_name = {k["name"]: k for k in kernels}
+    by_name["volpath_drt_nee"].update({"redesigned": "persistent",
+                                       "ms_persistent_same_shape": nee["ms_persistent"],
+                                       "ms_direct_same_shape": nee["ms_direct"],
+                                       "equal_to_direct": all(nee["equal_to_direct"].values())})
+    base = by_name["volpath_drt_nee"]
+    kernels.append({
+        "name": "volpath_drt_nee_direct", "route": "cuda", "source": base["source"],
+        "replaces": base["replaces"], "comparison_only": True,
+        "launches": train["launches"]["volpath_drt_nee_direct"],
+        "max_abs_err": base["max_abs_err"], "ms": nee["ms_direct"], "plain_ms": base["plain_ms"],
+        "bound_ms": base["bound_ms"], "bound_by": base["bound_by"], "library_ms": None,
+        "shape": base["shape"]})
+    if train["launches"]["volpath_drt_nee_direct"] != 0:
+        raise RuntimeError("the main path launched volpath_drt_nee_direct")
+    k7_default = {"train": train["launches"]["k_candidate"],
+                  "render": {k: v["k_candidate"] for k, v in render_launches.items()}}
+    if k7_default["train"] or any(k7_default["render"].values()):
+        raise RuntimeError(f"with UIVR_KCAND unset the main path launched K7: {k7_default}")
     # the persistent kernels' utilization and their direct times; the
     # one-ray-per-thread kernels, for comparison only (the main path never
     # launched them: their counts in the main run are 0)
-    by_name = {k["name"]: k for k in kernels}
     pairs = (("volpath_primal", "volpath_primal_direct", persist["render_chunk"]),
              ("volpath_primal_state", "volpath_primal_state_direct", persist["state"]),
              ("volpath_adjoint", "volpath_adjoint_direct", persist["adjoint"]))

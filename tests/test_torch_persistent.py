@@ -1,23 +1,31 @@
 """The persistent scheduling of the walking kernels, on the CPU.
 
-The CUDA kernels ``volpath_primal_kernel`` and ``volpath_adjoint_kernel``
-run the tasks of ``ops/csrc/persistent.cuh`` (``PrimalTask``,
-``AdjointTask``: one tracking event per ``lane_step``) under a scheduler in
-which a lane takes a new ray from a shared work counter as soon as its ray
-ends.  Here the same tasks, built for the host with g++, run under an
+The CUDA kernels ``volpath_primal_kernel``, ``volpath_primal_k_kernel``
+(K7), ``volpath_adjoint_kernel`` and the delayed DRT term's
+``drt_nee_kernel`` run the tasks of ``ops/csrc/persistent.cuh`` and
+``volpath_drt.cuh`` (``PrimalTask``, ``AdjointTask``: one tracking event
+per ``lane_step``; ``PrimalKTask``: one K7 dispatch per ``lane_step_k``;
+``DrtNeeTask``: one ratio-tracking trip) under a scheduler in which a lane
+takes a new ray from a shared work counter as soon as its ray ends.
+Here the same tasks, built for the host with g++, run under an
 emulation of that scheduler: warps of 32 lanes take turns, each claims
 indices for its idle lanes in lane order from one counter, then steps its
 busy lanes once.  Rays then occupy lanes in another order than one thread
 per ray, and every ray must still come out as the one-ray-per-lane build
-(``primal_lane``, ``adjoint_lane``) and the plain twin give it:
+(``primal_lane``, ``primal_lane_k``, ``adjoint_lane``, ``drt_nee_lane``)
+and the plain twin give it:
 
 - the primal, from world rays and from a ``PathState``, on the cube and on
   the sparse smoke (K6 on): radiance bit for bit, escapes, draws, steps
   and K6's counters;
+- K7 at K=4 on the sparse smoke: radiance bit for bit, escapes, draws,
+  steps and the K7 counters, against ``primal_lane_k`` and the K=4 twin;
 - the adjoint's per-ray outputs (draws, alt draws, steps, events,
   reservoir) bit for bit; its gradients, whose float sums run in another
   order, within ``tests/test_torch_adjoint.py``'s relative L1 (against the
-  twin on the cube, whose walk takes seconds on the sparse smoke);
+  twin on the cube, whose walk takes seconds on the sparse smoke); on the
+  cube, the DRT term's NEE on those reservoirs: ``nee``, ``trips_b`` and
+  ``K_B`` bit for bit against ``drt_nee_lane``;
 - the launch path reads nothing back from tensors: ``primal_params`` and
   ``adjoint_params`` build their blocks from host copies, with every
   device-to-host read refused.
@@ -34,7 +42,7 @@ from uivr_tpu.config import cube_test_scene
 from uivr_tpu_torch.config import bundle_from_numpy
 from uivr_tpu_torch.core.aabb import ray_unit_cube
 from uivr_tpu_torch.integrators import VolpathConfig, volpath_flat
-from uivr_tpu_torch.integrators.volpathsimple import PathState
+from uivr_tpu_torch.integrators.volpathsimple import PathState, _reservoir_get
 from uivr_tpu_torch.ops import volpath_step
 from uivr_tpu_torch.scene.camera import sample_rays
 from uivr_tpu_torch.scene.gradients import init_accum
@@ -50,6 +58,7 @@ _HOST_SRC = r'''#define __host__
 #define __device__
 #include <vector>
 #include "persistent.cuh"
+#include "volpath_drt.cuh"
 
 // run_persistent's schedule on the host: `warps` warps of 32 lanes take
 // turns; a warp with idle lanes claims consecutive indices from the
@@ -128,8 +137,24 @@ extern "C" void adjoint_persistent(const uivr::AdjParams* a, int warps, int refi
 extern "C" void adjoint_direct(const uivr::AdjParams* a) {
   for (int64_t i = 0; i < a->P.n; ++i) uivr::adjoint_lane(*a, i);
 }
+extern "C" void primal_k_persistent(const uivr::PrimalParams* p, int warps, int32_t* who) {
+  emulate<uivr::PrimalKTask<4>>(p->n, warps, 1, [&] { return uivr::PrimalKTask<4>(*p); }, who);
+}
+extern "C" void primal_k_direct(const uivr::PrimalParams* p) {
+  for (int64_t i = 0; i < p->n; ++i) uivr::primal_lane_k<4>(*p, i);
+}
+extern "C" void drt_walk(const uivr::DrtParams* d) {
+  for (int64_t i = 0; i < d->P.n; ++i) uivr::drt_walk_lane(*d, i);
+}
+extern "C" void drt_nee_persistent(const uivr::DrtParams* d, int warps, int32_t* who) {
+  emulate<uivr::DrtNeeTask>(d->P.n, warps, 1, [&] { return uivr::DrtNeeTask(*d); }, who);
+}
+extern "C" void drt_nee_direct(const uivr::DrtParams* d) {
+  for (int64_t i = 0; i < d->P.n; ++i) uivr::drt_nee_lane(*d, i);
+}
 extern "C" int sizes(int which) {
-  return which == 0 ? (int)sizeof(uivr::PrimalParams) : (int)sizeof(uivr::AdjParams);
+  return which == 0 ? (int)sizeof(uivr::PrimalParams)
+                    : (which == 1 ? (int)sizeof(uivr::AdjParams) : (int)sizeof(uivr::DrtParams));
 }
 '''
 
@@ -143,8 +168,14 @@ def lib():
     lib.adjoint_persistent.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_void_p]
     lib.adjoint_direct.argtypes = [ctypes.c_void_p]
+    lib.primal_k_persistent.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.primal_k_direct.argtypes = [ctypes.c_void_p]
+    for fn in (lib.drt_walk, lib.drt_nee_direct):
+        fn.argtypes = [ctypes.c_void_p]
+    lib.drt_nee_persistent.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     assert lib.sizes(0) == ctypes.sizeof(volpath_step.PrimalParams)
     assert lib.sizes(1) == ctypes.sizeof(volpath_step.AdjParams)
+    assert lib.sizes(2) == ctypes.sizeof(volpath_step.DrtParams)
     return lib
 
 
@@ -211,11 +242,52 @@ def _assert_refilled(who):
     assert not torch.equal(who, torch.arange(who.shape[0], dtype=torch.int32) % (32 * WARPS))
 
 
-@pytest.mark.parametrize("name", ["cube", "sparse"])
+def _host_primal_k(lib, tsc, o, d, persistent):
+    """K7 on the host at K=4: the persistent emulation, or primal_lane_k."""
+    n = N_RAYS
+    out = _primal_out(n)
+    out["kc"] = torch.empty(n, len(volpath_step.K7_COUNTERS), dtype=torch.int32)
+    p = volpath_step.primal_params(VolpathConfig(**CFG), tsc, o, d, SEED, out["L"],
+                                   out["escaped"], out["dim"], out["steps"])
+    p.sub, p.Ds, p.Hs, p.Ws = None, 0, 0, 0      # K6 is off under K7
+    p.k_cand, p.cross_steps = 4, volpath_flat.CROSS_STEPS
+    p.kc_counts = out["kc"].data_ptr()
+    if persistent:
+        who = torch.full((n,), -1, dtype=torch.int32)
+        lib.primal_k_persistent(ctypes.byref(p), WARPS, who.data_ptr())
+        out["who"] = who
+    else:
+        lib.primal_k_direct(ctypes.byref(p))
+    return out
+
+
+def _check_k4(lib, tsc, o, d):
+    """K7 at K=4, persistent, against primal_lane_k and the K=4 twin."""
+    one = _host_primal_k(lib, tsc, o, d, None)
+    L, e, st = volpath_flat.sample_primal(VolpathConfig(**CFG), tsc, o, d, SEED,
+                                          return_stats=True, deferred=True, k_cand=4)
+    assert torch.equal(one["L"], L) and torch.equal(one["escaped"], e)     # L bit for bit
+    assert torch.equal(one["dim"].long(), st["dim"])
+    assert torch.equal(one["steps"], st["batches"])
+    for i, key in enumerate(volpath_step.K7_COUNTERS):
+        assert torch.equal(one["kc"][:, i], st[key]), key
+    assert float(L.abs().sum()) > 0 and int(st["discarded"].sum()) > 0
+    per = _host_primal_k(lib, tsc, o, d, True)
+    _assert_refilled(per["who"])
+    for key in ("L", "escaped", "dim", "steps", "kc"):
+        assert torch.equal(per[key], one[key]), key
+
+
+@pytest.mark.parametrize("name", ["cube", "sparse", "sparse_k4"])
 def test_persistent_primal_equals_lanes_and_twin(name, lib, fixtures):
     """World rays and the path state, each against primal_lane and the
     twin; on the sparse smoke also a warp that waits for 8 idle lanes
-    before it claims, which runs other rays on other lanes."""
+    before it claims, which runs other rays on other lanes; ``sparse_k4``:
+    K7 at K=4 on the sparse smoke's world rays."""
+    if name == "sparse_k4":
+        tsc, o, d, _ = fixtures["sparse"]
+        _check_k4(lib, tsc, o, d)
+        return
     tsc, o, d, path_state = fixtures[name]
     for ps in (None, path_state):
         per = _host_primal(lib, tsc, o, d, ps, persistent=True)
@@ -276,6 +348,32 @@ def test_persistent_adjoint_equals_lanes_and_twin(name, lib, fixtures):
     assert torch.equal(res_p.depth, res_t.depth) and torch.equal(res_p.wsum, res_t.wsum)
     assert _rel_l1(acc_t.sigma, acc_p.sigma) < 1e-4
     assert _rel_l1(acc_t.albedo, acc_p.albedo) < 1e-4
+    _check_drt_nee(lib, cfg, tsc, res_p, dL)
+
+
+def _check_drt_nee(lib, cfg, tsc, res, dL):
+    """The DRT term's walk on the adjoint's reservoirs, then its NEE under
+    the emulated scheduler and one vertex per call: nee, trips_b and K_B
+    bit for bit."""
+    adjoint = (_reservoir_get(res) * dL).contiguous()
+    runs = {}
+    for tag in ("persistent", "direct"):
+        acc = init_accum(tsc.medium, need_emission=False)
+        D, out, _, counts = volpath_step.drt_params(cfg, tsc, SEED, res, adjoint, acc)
+        lib.drt_walk(ctypes.byref(D))
+        if tag == "persistent":
+            who = torch.full((N_RAYS,), -1, dtype=torch.int32)
+            lib.drt_nee_persistent(ctypes.byref(D), WARPS, who.data_ptr())
+            _assert_refilled(who)
+        else:
+            lib.drt_nee_direct(ctypes.byref(D))
+        runs[tag] = (out, counts)
+    (out_p, counts_p), (out_d, counts_d) = runs["persistent"], runs["direct"]
+    assert torch.equal(out_p["nee"], out_d["nee"]) and torch.equal(out_p["trips_b"],
+                                                                   out_d["trips_b"])
+    assert torch.equal(counts_p, counts_d)
+    assert int(counts_d[1]) == int(out_d["trips_b"].max()) > 1
+    assert float(out_d["nee"].abs().sum()) > 0
 
 
 def test_launch_blocks_read_nothing_back(fixtures, monkeypatch):

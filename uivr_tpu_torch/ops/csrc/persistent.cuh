@@ -15,8 +15,10 @@
 // takes it and when: only the order in which rays occupy lanes changes.
 //
 // A task is one lane's work: begin(i) starts ray i, finished() says its
-// walk is over, step() runs one tracking event (lane_step), end(i) writes
-// its outputs.  The tasks are host and device code; the host tests drive
+// walk is over, step() runs one tracking event (lane_step; one K7
+// dispatch, lane_step_k, in PrimalKTask; one ratio-tracking trip in the
+// delayed DRT term's DrtNeeTask, volpath_drt.cuh), end(i) writes its
+// outputs.  The tasks are host and device code; the host tests drive
 // them through an emulation of the scheduler below.
 #pragma once
 #include "volpath_adjoint.cuh"
@@ -50,6 +52,26 @@ struct AdjointTask {
   __host__ __device__ bool finished() const { return lane_finished(s, h); }
   __host__ __device__ void step() { lane_step(A.P, s, h); }
   __host__ __device__ void end(int64_t i) const { adjoint_end(A, i, s, h); }
+};
+
+// The K7 primal lane (volpath_primal_k_kernel<KMAX>): world rays in
+// batches of up to KMAX candidates (lane_step_k).
+template <int KMAX>
+struct PrimalKTask {
+  const PrimalParams& P;
+  LaneState s;
+  PrimalHooks h;
+  KBatch<KMAX> b;
+
+  __host__ __device__ explicit PrimalKTask(const PrimalParams& p) : P(p), h{p.max_steps} {}
+  __host__ __device__ void begin(int64_t i) {
+    init_from_ray(P, i, s);
+    init_common(s);
+    b.start(P, s);
+  }
+  __host__ __device__ bool finished() const { return lane_finished(s, h); }
+  __host__ __device__ void step() { lane_step_k<KMAX>(P, s, h, b); }
+  __host__ __device__ void end(int64_t i) const { write_primal_k<KMAX>(P, i, s, b); }
 };
 
 constexpr int kUtilCounters = 2;   // per warp: lane-steps, warp iterations

@@ -10,9 +10,8 @@
 // integrators/volpathsimple.py:_nee_primal (:95) with its ratio-tracking
 // transmittance (trackers.py:138-198), the phase sampling of the recursive
 // path and the sigma/albedo scatter (:720-728).  The recursive path itself
-// runs volpath_primal_state_kernel.  One thread per reservoir vertex; the
-// wavefront counter's maxima K_A and K_B pass between launches in device
-// memory (volpath_drt.cuh).
+// runs volpath_primal_state_kernel.  The wavefront counter's maxima K_A
+// and K_B pass between launches in device memory (volpath_drt.cuh).
 //
 // What bounds them: the walks are the same divergent, latency-bound
 // majorant tracking as the primal (one 128-B corner read per collision plus
@@ -21,9 +20,21 @@
 // registers instead of one launch per majorant collision of the longest
 // walk (the plain version's schedule), so the cost is the sum of the walks,
 // not the longest walk times the wavefront.
+//
+// The walk, phase and scatter kernels take one thread per reservoir vertex.
+// The NEE kernel is persistent (persistent.cuh, DrtNeeTask): of a janga
+// truth step's 524,288 vertices most are inactive and end at once, and the
+// walks of the rest are short with a long tail, so one thread per vertex
+// left most lanes of a warp idle; here the grid fills the card once and a
+// lane takes the next vertex from a work counter as soon as its walk ends,
+// and a warp's lanes that finish together raise K_B with one atomicMax.
+// drt_nee_direct_kernel keeps the one-thread-per-vertex kernel, each lane
+// raising K_B alone, for comparison only (which = 4): nothing on the main
+// path launches it.
 #include <cuda_runtime.h>
 
 #include "volpath_drt.cuh"
+#include "persistent.cuh"
 
 namespace {
 
@@ -38,9 +49,24 @@ __global__ void __launch_bounds__(kThreads) drt_walk_kernel(const uivr::DrtParam
   if (i < d.P.n) uivr::drt_walk_lane(d, i);
 }
 
-__global__ void __launch_bounds__(kThreads) drt_nee_kernel(const uivr::DrtParams d) {
+__global__ void __launch_bounds__(kThreads)
+drt_nee_kernel(const uivr::DrtParams d, unsigned long long* counter) {
+  uivr::DrtNeeTask t(d);
+  uivr::run_persistent(t, d.P.n, counter, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads) drt_nee_direct_kernel(const uivr::DrtParams d) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < d.P.n) uivr::drt_nee_lane(d, i);
+}
+
+int launch_nee(const uivr::DrtParams& d, unsigned long long* counter, cudaStream_t s) {
+  static int per_sm = 0;
+  cudaError_t e = cudaMemsetAsync(counter, 0, sizeof(unsigned long long), s);
+  if (e != cudaSuccess) return (int)e;
+  drt_nee_kernel<<<uivr::persistent_grid(drt_nee_kernel, kThreads, d.P.n, per_sm), kThreads, 0,
+                   s>>>(d, counter);
+  return (int)cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads) drt_phase_kernel(const uivr::DrtParams d) {
@@ -58,17 +84,20 @@ drt_scatter_kernel(const uivr::DrtParams d, int use_drt_mis) {
 
 extern "C" {
 
-// which: 0 walk, 1 nee, 2 phase, 3 scatter
+// which: 0 walk, 1 nee (persistent; counter: 8 bytes of scratch, zeroed
+// here on the stream), 2 phase, 3 scatter, 4 nee one thread per vertex
+// (comparison only)
 int volpath_drt_launch(const uivr::DrtParams* params, int which, int use_drt_mis,
-                       void* stream) {
+                       void* counter, void* stream) {
   const int64_t n = params->P.n;
   cudaStream_t s = (cudaStream_t)stream;
   if (n > 0) {
     switch (which) {
       case 0: drt_walk_kernel<<<n_blocks(n), kThreads, 0, s>>>(*params); break;
-      case 1: drt_nee_kernel<<<n_blocks(n), kThreads, 0, s>>>(*params); break;
+      case 1: return launch_nee(*params, (unsigned long long*)counter, s);
       case 2: drt_phase_kernel<<<n_blocks(n), kThreads, 0, s>>>(*params); break;
       case 3: drt_scatter_kernel<<<n_blocks(n), kThreads, 0, s>>>(*params, use_drt_mis); break;
+      case 4: drt_nee_direct_kernel<<<n_blocks(n), kThreads, 0, s>>>(*params); break;
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -8,8 +8,9 @@
 //
 //   1. drt_walk_lane: drt_distance; trip k draws at 2k, 2k+1; atomicMax of
 //      the trip count into counts[0] (K_A).
-//   2. drt_nee_lane: the NEE direction at 2K_A, 2K_A+1, then ratio
-//      tracking with trip j at 2K_A+2+j; atomicMax into counts[1] (K_B).
+//   2. DrtNeeTask (drt_nee_lane): the NEE direction at 2K_A, 2K_A+1, then
+//      ratio tracking with trip j at 2K_A+2+j; atomicMax into counts[1]
+//      (K_B).  Its kernel is persistent (persistent.cuh).
 //   3. drt_phase_lane: phase sampling from D = 2K_A (+ 2 + K_B with NEE),
 //      with u1 at D and u2 at D+2; builds the PathState of the recursive
 //      primal (volpath_primal_state_kernel runs it).
@@ -118,54 +119,106 @@ __host__ __device__ inline void drt_walk_lane(const DrtParams& D, int64_t i) {
   D.active[i] = found ? 1 : 0;
 }
 
-__host__ __device__ inline void drt_nee_lane(const DrtParams& D, int64_t i) {
-  const PrimalParams& P = D.P;
-  const uint32_t dim0 = 2u * D.counts[0];
-  V3 nee = {0.0f, 0.0f, 0.0f};
-  uint32_t j = 0;
-  if (D.active[i]) {
-    const float u0 = wavefront_draw(D.drt_seed, dim0, (uint32_t)i);
-    const float u1 = wavefront_draw(D.drt_seed, dim0 + 1u, (uint32_t)i);
+// Launch 2 for one reservoir vertex, as a task of the persistent scheduler
+// (persistent.cuh): begin(i) takes the direction draws at 2K_A, 2K_A+1,
+// samples the emitter and sets up the transmittance walk; step() runs one
+// ratio-tracking trip (draw 2K_A+2+j); end(i) writes nee and trips_b and
+// raises K_B.  An inactive vertex, or one whose sample has pdf 0, walks no
+// trip: it is finished at begin and writes zeros.  Every draw is keyed by
+// the vertex index and K_B is a maximum, so the order in which vertices
+// occupy lanes and finish changes nothing.
+struct DrtNeeTask {
+  const DrtParams& D;
+  V3 p, dln, em_w;        // walk origin and direction (local), sample weight
+  float tmax, t, tr, k;   // k: phase * MIS weight of the sample
+  uint32_t key, dim0, j;  // vertex, first draw, trips
+  bool walks, walking;
+
+  __host__ __device__ explicit DrtNeeTask(const DrtParams& d) : D(d) {}
+
+  __host__ __device__ void begin(int64_t i) {
+    const PrimalParams& P = D.P;
+    key = (uint32_t)i;
+    dim0 = 2u * D.counts[0];
+    j = 0;
+    t = 0.0f;
+    tr = 1.0f;
+    k = 0.0f;
+    walks = walking = false;
+    if (!D.active[i]) return;
+    const float u0 = wavefront_draw(D.drt_seed, dim0, key);
+    const float u1 = wavefront_draw(D.drt_seed, dim0 + 1u, key);
     float ds_pdf;
-    V3 em_w;
     const float* rad;   // stays null: the term's NEE samples at full resolution
     const V3 ds_d = emitter_sample(P, u0, u1, ds_pdf, em_w, rad);
-    if (ds_pdf > 0.0f) {
-      const V3 p = load3(D.p, i);
-      const V3 dln = xform_dir(P.w2l, 4, ds_d);
-      const float tmax = exit_dist(p, dln);
-      float t = 0.0f, tr = 1.0f;
-      for (;;) {
-        float t_exit;
-        const float sigma_maj = cell_step(P, p, dln, t, t_exit);
-        const float u = wavefront_draw(D.drt_seed, dim0 + 2u + j, (uint32_t)i);
-        const float t_cand = t + free_step(sigma_maj, u);
-        const bool collided = t_cand < fminf(t_exit, tmax);
-        const bool crossed = !collided && t_exit < tmax;
-        const bool done_now = !collided && t_exit >= tmax;
-        if (collided) {
-          float sig;
-          V3 alb;
-          sigma_albedo(P, step_point(p, t_cand, dln), sig, alb);
-          tr = tr * null_ratio(sig, sigma_maj);
-          t = t_cand;
-        } else if (crossed) {
-          t = t_exit;
-        }
-        if (done_now || !(tr > 0.0f) || !(j < (uint32_t)P.max_steps)) {
-          ++j;
-          break;
-        }
-        ++j;
-      }
-      atomic_max(D.counts + 1, j);
-      const float ph = phase_eval(P.phase_g, load3(D.res_d_w, i), ds_d);
-      const float s = (ph * mis_weight(ds_pdf, ph)) * tr;
+    if (!(ds_pdf > 0.0f)) return;
+    p = load3(D.p, i);
+    dln = xform_dir(P.w2l, 4, ds_d);
+    tmax = exit_dist(p, dln);
+    const float ph = phase_eval(P.phase_g, load3(D.res_d_w, i), ds_d);
+    k = ph * mis_weight(ds_pdf, ph);
+    walks = walking = true;
+  }
+
+  __host__ __device__ bool finished() const { return !walking; }
+
+  __host__ __device__ void step() {
+    const PrimalParams& P = D.P;
+    float t_exit;
+    const float sigma_maj = cell_step(P, p, dln, t, t_exit);
+    const float u = wavefront_draw(D.drt_seed, dim0 + 2u + j, key);
+    const float t_cand = t + free_step(sigma_maj, u);
+    const bool collided = t_cand < fminf(t_exit, tmax);
+    const bool crossed = !collided && t_exit < tmax;
+    const bool done_now = !collided && t_exit >= tmax;
+    if (collided) {
+      float sig;
+      V3 alb;
+      sigma_albedo(P, step_point(p, t_cand, dln), sig, alb);
+      tr = tr * null_ratio(sig, sigma_maj);
+      t = t_cand;
+    } else if (crossed) {
+      t = t_exit;
+    }
+    if (done_now || !(tr > 0.0f) || !(j < (uint32_t)P.max_steps)) walking = false;
+    ++j;
+  }
+
+  // nee and trips_b of vertex i
+  __host__ __device__ void write(int64_t i) const {
+    V3 nee = {0.0f, 0.0f, 0.0f};
+    if (walks) {
+      const float s = k * tr;
       nee = {s * em_w.x, s * em_w.y, s * em_w.z};
     }
+    store3(D.nee, i, nee);
+    D.trips_b[i] = (int32_t)j;
   }
-  store3(D.nee, i, nee);
-  D.trips_b[i] = (int32_t)j;
+
+  // the outputs, and K_B raised with one atomicMax per group of the warp's
+  // lanes that finish together (their largest walk; a vertex that walked
+  // no trip adds 0)
+  __host__ __device__ void end(int64_t i) const {
+    write(i);
+#ifdef __CUDA_ARCH__
+    const unsigned group = __activemask();
+    const unsigned most = __reduce_max_sync(group, walks ? j : 0u);
+    if ((threadIdx.x & 31u) == (unsigned)(__ffs(group) - 1) && most > 0u)
+      atomicMax(D.counts + 1, most);
+#else
+    if (walks) atomic_max(D.counts + 1, j);
+#endif
+  }
+};
+
+// Launch 2 run to its end for one vertex, K_B raised by the lane alone
+// (the one-thread-per-vertex kernel's lane).
+__host__ __device__ inline void drt_nee_lane(const DrtParams& D, int64_t i) {
+  DrtNeeTask task(D);
+  task.begin(i);
+  while (!task.finished()) task.step();
+  task.write(i);
+  if (task.walks) atomic_max(D.counts + 1, task.j);
 }
 
 __host__ __device__ inline void drt_phase_lane(const DrtParams& D, int64_t i) {

@@ -19,7 +19,7 @@
 // the full-resolution texel the direction lands in, multiplied into the
 // shadow weight after 1/pdf; escapes weigh MIS with the proxy's pdf.
 // With k_cand > 1 a primal lane walks in K-candidate batches instead
-// (trace_lane_k, K7: the reference's k_cand > 1 specialisation).
+// (lane_step_k, K7: the reference's k_cand > 1 specialisation).
 //
 // The arithmetic repeats the plain twin operation for operation (see
 // uivr_tpu_torch/core/fmath.py): fmaf exactly where the twin fuses, float64
@@ -751,73 +751,96 @@ __host__ __device__ inline int emit_batch(const PrimalParams& P, LaneState& s,
   return nc;
 }
 
-// The primal lane's walk with batches of up to KMAX candidates; cnt gets
+// A lane's batch between dispatches: its candidates, their count and the
+// K7 counters (batches is set from the lane's steps when it ends).
+template <int KMAX>
+struct KBatch {
+  Cand c[KMAX];
+  int nc;
+  int32_t cnt[kK7Counters];
+
+  // the lane's first batch (PRE only), right after its ray starts
+  __host__ __device__ void start(const PrimalParams& P, LaneState& s) {
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) c[j] = {0.0f, 0.0f, 0.0f, 0.0f, kCandNone};
+    for (int k = 0; k < kK7Counters; ++k) cnt[k] = 0;
+    nc = emit_batch<KMAX>(P, s, c, cnt[1]);
+  }
+};
+
+// One K7 dispatch of a lane that is not DONE and has steps left: the
+// batch's fetches, phase-0 resolution, apply_event and the next batch
+// (the body of trace_lane_k's loop; PrimalKTask runs one per warp
+// iteration).
+template <int KMAX, class Hooks>
+__host__ __device__ inline void lane_step_k(const PrimalParams& P, LaneState& s, Hooks& h,
+                                            KBatch<KMAX>& b) {
+  static_assert(!Hooks::kAdjoint, "K-candidate batching is primal only");
+  ++s.steps;
+  const bool is_main = s.mode == MAIN, is_sh = s.mode == SHADOW;
+  const V3 wd = is_main ? s.d_l : s.sh_d;
+  const float wt = is_main ? s.t : s.sh_t;
+  const float wmax = is_main ? s.maxt : s.sh_tmax;
+  const int nc = b.nc;
+  const Cand* c = b.c;
+  float sig[KMAX];
+  V3 alb[KMAX];
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {   // the batch's fetches, back to back
+    const bool coll = j < nc && c[j].kind == kCandColl;
+    sigma_albedo(P, step_point(s.o, c[j].t_cand, wd), sig[j], alb[j], coll);
+    b.cnt[2] += coll ? 1 : 0;
+  }
+  // phase 0: resolve in order; shadow multiplies (and roulette) applied
+  float sh_tr = s.sh_tr;
+  bool found = false;
+  Cand pr = {0.0f, 0.0f, 0.0f, 0.0f, kCandNone};
+  float p_sig = 0.0f;
+  V3 p_alb = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) {
+    if (j >= nc) continue;
+    const bool coll = c[j].kind == kCandColl;
+    if (found) {   // past the terminal: fetched, never used
+      b.cnt[3] += coll ? 1 : 0;
+      continue;
+    }
+    const float r = c[j].smaj > 0.0f ? sig[j] / fmaxf(c[j].smaj, 1e-20f) : 0.0f;
+    bool term = c[j].kind >= kCandSegEnd;
+    if (is_main) {
+      term = term || (coll && c[j].u_evt < r);
+    } else if (coll) {
+      sh_tr = sh_tr * fmaxf(1.0f - r, 0.0f);
+      if (P.shadow_rr > 0.0f && sh_tr < P.shadow_rr && sh_tr > 0.0f)
+        sh_tr = c[j].u_evt < sh_tr * P.inv_shadow_rr ? P.shadow_rr : 0.0f;
+      term = term || sh_tr <= 0.0f;
+    }
+    pr = c[j];
+    p_sig = sig[j];
+    p_alb = alb[j];
+    found = term;
+  }
+  s.sh_tr = sh_tr;
+  // the presented event; a shadow one takes sigma 0 (its multiply is done)
+  const bool collided = pr.t_cand < fminf(pr.t_exit, wmax);
+  const bool fin_seg = !collided && pr.t_exit >= wmax;
+  const bool crossed = !collided && pr.t_exit < wmax;
+  const float t_next = collided ? pr.t_cand : (crossed ? pr.t_exit : wt);
+  const float sg = is_sh ? 0.0f : p_sig;
+  const float r = pr.smaj > 0.0f ? sg / fmaxf(pr.smaj, 1e-20f) : 0.0f;
+  apply_event(P, s, h, is_sh, collided, fin_seg, t_next, pr.t_cand,
+              step_point(s.o, pr.t_cand, wd), sg, r, fmaxf(1.0f - r, 0.0f), p_alb,
+              pr.u_evt);
+  b.nc = emit_batch<KMAX>(P, s, b.c, b.cnt[1]);
+}
+
+// The primal lane's walk with batches of up to KMAX candidates; b gets
 // the K7 counters.
 template <int KMAX, class Hooks>
 __host__ __device__ inline void trace_lane_k(const PrimalParams& P, LaneState& s, Hooks& h,
-                                             int32_t (&cnt)[kK7Counters]) {
-  static_assert(!Hooks::kAdjoint, "K-candidate batching is primal only");
-  Cand c[KMAX];
-#pragma unroll
-  for (int j = 0; j < KMAX; ++j) c[j] = {0.0f, 0.0f, 0.0f, 0.0f, kCandNone};
-  int nc = emit_batch<KMAX>(P, s, c, cnt[1]);
-  while (s.mode != DONE && s.steps < h.max_steps) {
-    ++s.steps;
-    const bool is_main = s.mode == MAIN, is_sh = s.mode == SHADOW;
-    const V3 wd = is_main ? s.d_l : s.sh_d;
-    const float wt = is_main ? s.t : s.sh_t;
-    const float wmax = is_main ? s.maxt : s.sh_tmax;
-    float sig[KMAX];
-    V3 alb[KMAX];
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {   // the batch's fetches, back to back
-      const bool coll = j < nc && c[j].kind == kCandColl;
-      sigma_albedo(P, step_point(s.o, c[j].t_cand, wd), sig[j], alb[j], coll);
-      cnt[2] += coll ? 1 : 0;
-    }
-    // phase 0: resolve in order; shadow multiplies (and roulette) applied
-    float sh_tr = s.sh_tr;
-    bool found = false;
-    Cand pr = {0.0f, 0.0f, 0.0f, 0.0f, kCandNone};
-    float p_sig = 0.0f;
-    V3 p_alb = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int j = 0; j < KMAX; ++j) {
-      if (j >= nc) continue;
-      const bool coll = c[j].kind == kCandColl;
-      if (found) {   // past the terminal: fetched, never used
-        cnt[3] += coll ? 1 : 0;
-        continue;
-      }
-      const float r = c[j].smaj > 0.0f ? sig[j] / fmaxf(c[j].smaj, 1e-20f) : 0.0f;
-      bool term = c[j].kind >= kCandSegEnd;
-      if (is_main) {
-        term = term || (coll && c[j].u_evt < r);
-      } else if (coll) {
-        sh_tr = sh_tr * fmaxf(1.0f - r, 0.0f);
-        if (P.shadow_rr > 0.0f && sh_tr < P.shadow_rr && sh_tr > 0.0f)
-          sh_tr = c[j].u_evt < sh_tr * P.inv_shadow_rr ? P.shadow_rr : 0.0f;
-        term = term || sh_tr <= 0.0f;
-      }
-      pr = c[j];
-      p_sig = sig[j];
-      p_alb = alb[j];
-      found = term;
-    }
-    s.sh_tr = sh_tr;
-    // the presented event; a shadow one takes sigma 0 (its multiply is done)
-    const bool collided = pr.t_cand < fminf(pr.t_exit, wmax);
-    const bool fin_seg = !collided && pr.t_exit >= wmax;
-    const bool crossed = !collided && pr.t_exit < wmax;
-    const float t_next = collided ? pr.t_cand : (crossed ? pr.t_exit : wt);
-    const float sg = is_sh ? 0.0f : p_sig;
-    const float r = pr.smaj > 0.0f ? sg / fmaxf(pr.smaj, 1e-20f) : 0.0f;
-    apply_event(P, s, h, is_sh, collided, fin_seg, t_next, pr.t_cand,
-                step_point(s.o, pr.t_cand, wd), sg, r, fmaxf(1.0f - r, 0.0f), p_alb,
-                pr.u_evt);
-    nc = emit_batch<KMAX>(P, s, c, cnt[1]);
-  }
-  cnt[0] = s.steps;
+                                             KBatch<KMAX>& b) {
+  b.start(P, s);
+  while (!lane_finished(s, h)) lane_step_k<KMAX>(P, s, h, b);
 }
 
 // _finish: emitter radiance on escape, MIS-weighted against NEE (with the
@@ -886,6 +909,19 @@ __host__ __device__ inline void primal_lane(const PrimalParams& P, int64_t i,
   write_primal(P, i, s);
 }
 
+// K7's outputs of ray i: the primal's and the K7 counters' row (batches:
+// the lane's steps).
+template <int KMAX>
+__host__ __device__ inline void write_primal_k(const PrimalParams& P, int64_t i,
+                                               const LaneState& s, const KBatch<KMAX>& b) {
+  write_primal(P, i, s);
+  if (P.kc_counts) {
+    int32_t* row = P.kc_counts + kK7Counters * i;
+    row[0] = s.steps;
+    for (int k = 1; k < kK7Counters; ++k) row[k] = b.cnt[k];
+  }
+}
+
 // One primal lane from a world ray with K-candidate batches (k_cand <= KMAX).
 template <int KMAX>
 __host__ __device__ inline void primal_lane_k(const PrimalParams& P, int64_t i) {
@@ -893,12 +929,9 @@ __host__ __device__ inline void primal_lane_k(const PrimalParams& P, int64_t i) 
   init_from_ray(P, i, s);
   init_common(s);
   PrimalHooks h{P.max_steps};
-  int32_t cnt[kK7Counters] = {0, 0, 0, 0};
-  trace_lane_k<KMAX>(P, s, h, cnt);
-  write_primal(P, i, s);
-  if (P.kc_counts) {
-    for (int k = 0; k < kK7Counters; ++k) P.kc_counts[kK7Counters * i + k] = cnt[k];
-  }
+  KBatch<KMAX> b;
+  trace_lane_k<KMAX>(P, s, h, b);
+  write_primal_k<KMAX>(P, i, s, b);
 }
 
 }  // namespace uivr

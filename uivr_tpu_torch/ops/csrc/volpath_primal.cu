@@ -52,14 +52,22 @@
 // :366-432, PRE :846-940) and its K-row sigma gather (_make_step
 // :1277-1291).  Its bound is the same as K2's: the batch only reorders the
 // fetches, and adds those of the candidates past a terminal event.  The
-// design goes at what holds the K=1 kernel back, the latency of one
-// dependent 128-B corner fetch per event: a batch's fetches are issued back
-// to back, up to KMAX x 8 float4 loads in flight per thread, before any of
-// them is used.  The candidates live in registers (KMAX x 5 words).  On an
-// H100 (700 W) that does not pay: K = 2, 4, 8 run 1.2x, 2.0x, 2.7x K=1's
-// time on janga-smoke's render chunk (PERF.md), as the registers (177 at
-// K=4, 255 and spills at K=8, against 128) halve and quarter the warps per
-// SM, and the batches add cell steps and discarded fetches.
+// batch goes at the latency of one dependent 128-B corner fetch per event:
+// its fetches are issued back to back, up to KMAX x 8 16-B loads in flight
+// per lane, before any of them is used.  It runs on the persistent
+// scheduler (PrimalKTask: one dispatch, lane_step_k, per warp iteration),
+// its loads in registers under a minimum-blocks bound per instantiation
+// (kK7MinBlocks) that spills: 72 / 96 / 128 registers, 570 / 466 / 556 B
+// of spill stores at K = 2 / 4 / 8, which keeps 20-28 warps a SM.  On an
+// H100 (700 W, janga-smoke's 2^20-ray render chunk; PERF.md) that ran
+// 13.5-14.0, 15.6-16.2 and 21.2 ms, faster than a variant that issued the
+// loads as cp.async copies into a per-lane shared-memory slab (KMAX x
+// 128 B a thread, no register in flight, 7 to 14 warps a SM): 14.3, 18.7
+// and 28.1 ms for its best shapes.
+// The one-ray-per-thread K7 kernel stays as
+// volpath_primal_k_direct_kernel (register loads, no minimum-blocks bound:
+// 128, 182 and 255 registers), for comparison only: 23.0, 37.1 and 50.3 ms
+// at K = 2, 4, 8, where the persistent K=1 kernel takes 10.3 ms.
 //
 // With from_state, the same lane starts from a PathState (K2's path_state
 // entry, volpath_primal_state in the wrappers' counts): the recursive detached Li of the delayed DRT term
@@ -99,9 +107,24 @@ volpath_primal_state_direct_kernel(const uivr::PrimalParams p) {
   if (i < p.n) uivr::primal_lane(p, i, true);
 }
 
+// K7's minimum-blocks bound of __launch_bounds__ per instantiation, at
+// kThreads a block (PERF.md: the fastest of a sweep on the card).
+template <int KMAX>
+constexpr int kK7MinBlocks = KMAX == 2 ? 7 : (KMAX == 4 ? 5 : 4);
+
+template <int KMAX>
+__global__ void __launch_bounds__(kThreads, kK7MinBlocks<KMAX>)
+volpath_primal_k_kernel(const uivr::PrimalParams p, unsigned long long* counter,
+                        long long* util) {
+  uivr::PrimalKTask<KMAX> t(p);
+  uivr::run_persistent(t, p.n, counter, util);
+}
+
+// one thread, one ray, loads in registers: the K7 kernel before persistent
+// scheduling
 template <int KMAX>
 __global__ void __launch_bounds__(kThreads)
-volpath_primal_k_kernel(const uivr::PrimalParams p) {
+volpath_primal_k_direct_kernel(const uivr::PrimalParams p) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < p.n) uivr::primal_lane_k<KMAX>(p, i);
 }
@@ -127,6 +150,16 @@ int launch_persistent(const uivr::PrimalParams& p, unsigned long long* counter,
                       long long* util, cudaStream_t st) {
   static int per_sm = 0;
   auto kernel = volpath_primal_kernel<kState>;
+  kernel<<<uivr::persistent_grid(kernel, kThreads, p.n, per_sm), kThreads, 0, st>>>(
+      p, counter, util);
+  return (int)cudaGetLastError();
+}
+
+template <int KMAX>
+int launch_k(const uivr::PrimalParams& p, unsigned long long* counter, long long* util,
+             cudaStream_t st) {
+  static int per_sm = 0;
+  auto kernel = volpath_primal_k_kernel<KMAX>;
   kernel<<<uivr::persistent_grid(kernel, kThreads, p.n, per_sm), kThreads, 0, st>>>(
       p, counter, util);
   return (int)cudaGetLastError();
@@ -171,16 +204,35 @@ int volpath_primal_direct_launch(const uivr::PrimalParams* params, int from_stat
   return (int)cudaGetLastError();
 }
 
-// K7: kmax is the instantiation (2, 4 or 8), params->k_cand <= kmax
-int volpath_primal_k_launch(const uivr::PrimalParams* params, int kmax, void* stream) {
+// K7, persistent: kmax is the instantiation (2, 4 or 8), params->k_cand <=
+// kmax; counter and util as volpath_primal_launch's.
+int volpath_primal_k_launch(const uivr::PrimalParams* params, int kmax, void* counter,
+                            void* util, void* stream) {
+  if (params->k_cand < 2 || params->k_cand > kmax) return (int)cudaErrorInvalidValue;
+  if (params->n <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  unsigned long long* c = (unsigned long long*)counter;
+  long long* u = (long long*)util;
+  cudaError_t e = cudaMemsetAsync(c, 0, sizeof(unsigned long long), st);
+  if (e != cudaSuccess) return (int)e;
+  switch (kmax) {
+    case 2: return launch_k<2>(*params, c, u, st);
+    case 4: return launch_k<4>(*params, c, u, st);
+    case 8: return launch_k<8>(*params, c, u, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// K7, one ray per thread (comparison only).
+int volpath_primal_k_direct_launch(const uivr::PrimalParams* params, int kmax, void* stream) {
   if (params->k_cand < 2 || params->k_cand > kmax) return (int)cudaErrorInvalidValue;
   if (params->n <= 0) return (int)cudaGetLastError();
   const dim3 grid(n_blocks(params->n)), block(kThreads);
   cudaStream_t st = (cudaStream_t)stream;
   switch (kmax) {
-    case 2: volpath_primal_k_kernel<2><<<grid, block, 0, st>>>(*params); break;
-    case 4: volpath_primal_k_kernel<4><<<grid, block, 0, st>>>(*params); break;
-    case 8: volpath_primal_k_kernel<8><<<grid, block, 0, st>>>(*params); break;
+    case 2: volpath_primal_k_direct_kernel<2><<<grid, block, 0, st>>>(*params); break;
+    case 4: volpath_primal_k_direct_kernel<4><<<grid, block, 0, st>>>(*params); break;
+    case 8: volpath_primal_k_direct_kernel<8><<<grid, block, 0, st>>>(*params); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();

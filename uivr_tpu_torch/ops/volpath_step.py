@@ -19,9 +19,10 @@ The CUDA sources live in ``csrc/``:
 - ``volpath_adjoint.cuh`` the adjoint hooks: REPLAY walk, PRB and
                           transmittance cotangents, DRT reservoir (K4, K5)
 - ``volpath_drt.cuh``     the delayed DRT term's lanes
-- ``persistent.cuh``      the persistent scheduler of the primal and
-                          adjoint kernels: lanes take rays from a work
-                          counter and a new one as soon as theirs ends
+- ``persistent.cuh``      the persistent scheduler of the walking kernels
+                          (primal, K7 primal, adjoint, the DRT term's NEE):
+                          lanes take rays from a work counter and a new one
+                          as soon as theirs ends
 - ``volpath_primal.cu``, ``volpath_adjoint.cu``, ``volpath_drt.cu``: the
   ``__global__`` kernels and ``extern "C"`` launchers, one library each
 
@@ -60,15 +61,17 @@ from ..scene.scene import Scene
 # "subcell_classification" counts the walking kernels' launches that ran K6
 # (their medium had a subcell table), "deferred_nee" those that ran K3b
 # (their envmap had a coarse proxy), "k_candidate" the primal launches that
-# ran K7 (``volpath_primal_k_kernel``, k_cand > 1).  The ``*_direct`` kernels are the one-ray-per-thread kernels that the
-# persistent ones replaced, launched only when a caller asks (``direct``)
-# to compare the two.
+# ran K7 (``volpath_primal_k_kernel``, k_cand > 1).  The ``*_direct``
+# kernels are the one-ray-per-thread kernels that the persistent ones
+# replaced, launched only when a caller asks (``direct``) to compare the
+# two; ``volpath_primal_k_direct`` is K7's (it counts as a K7 launch too).
 LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_adjoint": 0, "volpath_drt_walk": 0, "volpath_drt_nee": 0,
             "volpath_drt_phase": 0, "volpath_drt_scatter": 0,
             "subcell_classification": 0, "deferred_nee": 0, "k_candidate": 0,
-            "volpath_primal_direct": 0,
-            "volpath_primal_state_direct": 0, "volpath_adjoint_direct": 0}
+            "volpath_primal_direct": 0, "volpath_primal_state_direct": 0,
+            "volpath_primal_k_direct": 0, "volpath_adjoint_direct": 0,
+            "volpath_drt_nee_direct": 0}
 # K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
 # candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
 # events, of which classified, classified SHADOW events, sigma fetches
@@ -208,10 +211,11 @@ _PERSISTENT = [ctypes.c_void_p, ctypes.c_void_p]
 _LAUNCHERS = {
     "primal": {"volpath_primal_launch": [ctypes.c_int] + _PERSISTENT,
                "volpath_primal_direct_launch": [ctypes.c_int],
-               "volpath_primal_k_launch": [ctypes.c_int], "tea_launch": None},
+               "volpath_primal_k_launch": [ctypes.c_int] + _PERSISTENT,
+               "volpath_primal_k_direct_launch": [ctypes.c_int], "tea_launch": None},
     "adjoint": {"volpath_adjoint_launch": _PERSISTENT,
                 "volpath_adjoint_direct_launch": []},
-    "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int]},
+    "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
 }
 _SIZES = {"primal": ("primal_params_size", PrimalParams),
           "adjoint": ("adj_params_size", AdjParams),
@@ -440,13 +444,14 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     per-lane ``dim`` (draws consumed) and ``steps``, like the plain twin;
     the kernel adds ``cls``, K6's per-lane counters (n, 5) int32 in the
     order of :data:`CLS_COUNTERS`, with ``k_cand > 1`` the K7 counters of
-    :data:`K7_COUNTERS`, each (n,) int32, and at ``k_cand == 1`` ``util``,
-    the persistent kernel's per-warp counters of :data:`UTIL_COUNTERS`.
+    :data:`K7_COUNTERS`, each (n,) int32, and ``util``, the persistent
+    kernel's per-warp counters of :data:`UTIL_COUNTERS`.
     On ``cpu`` tensors this is the plain twin (deferred mode); on ``cuda``
     tensors it launches the persistent ``volpath_primal_kernel`` (from the
-    path state with one), ``volpath_primal_k_kernel`` with ``k_cand > 1``,
-    and with ``direct`` the one-ray-per-thread kernel that the persistent
-    one replaced (for comparison; no ``util``)."""
+    path state with one), with ``k_cand > 1`` the persistent
+    ``volpath_primal_k_kernel``, and with ``direct`` the one-ray-per-thread
+    kernel that the persistent one replaced (for comparison; no
+    ``util``)."""
     kmax = k7_build(k_cand)
     if k_cand > 1 and path_state is not None:
         raise ValueError("K-candidate batching takes world rays, not a path state")
@@ -473,19 +478,25 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
         params.sub, params.Ds, params.Hs, params.Ws = None, 0, 0, 0
         params.k_cand, params.cross_steps = k_cand, volpath_flat.CROSS_STEPS
         params.kc_counts = _ptr(kc)
-    flags = dict(classified=params.Ds > 0, deferred=params.nee_H > 0)
+    flags = dict(classified=params.Ds > 0, deferred=params.nee_H > 0,
+                 k_candidate=k_cand > 1)
     key = "volpath_primal_state" if path_state is not None else "volpath_primal"
     from_state = int(path_state is not None)
-    if k_cand > 1:
-        _launch(key, lib.volpath_primal_k_launch, ctypes.byref(params), kmax,
-                _stream(dev), k_candidate=True, **flags)
-    elif direct:
-        _launch(key + "_direct", lib.volpath_primal_direct_launch, ctypes.byref(params),
-                from_state, _stream(dev), **flags)
+    if direct:
+        if k_cand > 1:
+            _launch("volpath_primal_k_direct", lib.volpath_primal_k_direct_launch,
+                    ctypes.byref(params), kmax, _stream(dev), **flags)
+        else:
+            _launch(key + "_direct", lib.volpath_primal_direct_launch, ctypes.byref(params),
+                    from_state, _stream(dev), **flags)
     else:
         counter, util = persistent_args(dev, return_stats)
-        _launch(key, lib.volpath_primal_launch, ctypes.byref(params), from_state,
-                counter.data_ptr(), _ptr(util), _stream(dev), **flags)
+        if k_cand > 1:
+            _launch(key, lib.volpath_primal_k_launch, ctypes.byref(params), kmax,
+                    counter.data_ptr(), _ptr(util), _stream(dev), **flags)
+        else:
+            _launch(key, lib.volpath_primal_launch, ctypes.byref(params), from_state,
+                    counter.data_ptr(), _ptr(util), _stream(dev), **flags)
     if return_stats:
         stats = {"dim": _u32(dims), "steps": steps, "cls": cls}
         if kc is not None:
@@ -624,13 +635,15 @@ def drt_params(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
 
 def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
                         adjoint: torch.Tensor, acc: GradAccum,
-                        return_stats: bool = False):
+                        return_stats: bool = False, direct: bool = False):
     """The delayed DRT term (``volpath_flat._drt_backward_flat``), adding
     into ``acc``.  On ``cuda`` tensors it runs the ``volpath_drt`` kernels
     (walk, NEE, phase, scatter) around ``volpath_primal_state_kernel``;
-    the wavefront counter's maxima stay on the device.  ``return_stats``
-    returns the twin's stats too (``k_a`` and ``k_b`` read back from the
-    device), with the per-lane walk lengths ``trips_a`` and ``trips_b``."""
+    the wavefront counter's maxima stay on the device.  The NEE kernel is
+    persistent; ``direct`` launches the one-thread-per-vertex NEE kernel
+    that it replaced instead (for comparison).  ``return_stats`` returns
+    the twin's stats too (``k_a`` and ``k_b`` read back from the device),
+    with the per-lane walk lengths ``trips_a`` and ``trips_b``."""
     if not res.o_l.is_cuda:
         return volpath_flat._drt_backward_flat(cfg, scene, seed, res, adjoint, acc,
                                                return_stats, deferred=True)
@@ -639,12 +652,16 @@ def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
     lib = _load("drt")
     mis = int(cfg.use_drt_mis)
 
-    def launch(which, key):
-        _launch(key, lib.volpath_drt_launch, ctypes.byref(D), which, mis, _stream(dev))
+    def launch(which, key, counter=None):
+        _launch(key, lib.volpath_drt_launch, ctypes.byref(D), which, mis, _ptr(counter),
+                _stream(dev))
 
     launch(0, "volpath_drt_walk")
     if cfg.use_nee:
-        launch(1, "volpath_drt_nee")
+        if direct:
+            launch(4, "volpath_drt_nee_direct")
+        else:
+            launch(1, "volpath_drt_nee", persistent_args(dev, False)[0])
     launch(2, "volpath_drt_phase")
     rec_seed, _ = sample_tea_32(int(seed), 0x7177)
     rec = sample_primal_kernel(cfg, scene, None, None, rec_seed, return_stats,
