@@ -12,10 +12,10 @@ K6 (subcell classification) is on by default in every walking kernel; "K6
 off" is the same kernel on the same medium without its subcell table, which
 must give the same result.  The walking kernels (``volpath_primal``, its
 path-state entry, its K7 form, ``volpath_adjoint`` and the DRT term's
-NEE) are persistent: lanes take rays from a work counter, a new one as
-soon as theirs ends.  The one-ray-per-thread kernels they replaced run
-only here, through the wrappers' ``direct=True``, as the A/B baseline and
-the bit-for-bit reference on the card.  The plain twins of phases 3, 6
+walk and NEE) are persistent: lanes take rays from a work counter, a new
+one as soon as theirs ends.  The one-ray-per-thread kernels they replaced
+run only here, through the wrappers' ``direct=True``, as the A/B baseline
+and the bit-for-bit reference on the card.  The plain twins of phases 3, 6
 and 9b run after their phase's times are taken, two at a time: every
 other one in a worker process (``run_twins``; the worker shares the card,
 so nothing is timed meanwhile):
@@ -64,10 +64,13 @@ so nothing is timed meanwhile):
    package's build.  The persistent kernels' lanes
    equal the twin's wherever phases 3-9b compare the main path's
    kernels with their twins.  Phases 3 and 9b hold the persistent primal
-   against the direct one on their random-pixel rays too.  The DRT term's
-   NEE on the replay's reservoirs: the persistent ``drt_nee_kernel``
-   against the one-thread-per-vertex one (nee, trips_b and K_B bit for
-   bit; times of the NEE launch in turns).
+   against the direct one on their random-pixel rays too.  The DRT term on
+   the replay's reservoirs (``drt_turns``): the persistent
+   ``drt_walk_kernel`` and ``drt_nee_kernel`` against the
+   one-thread-per-vertex ones (the walk's t_sel, wsum, found, trips_a, p,
+   kept sigma and albedo and K_A, the NEE's nee, trips_b and K_B bit for
+   bit; the walk's trips, both lane utilizations and warp iterations;
+   both launches timed in DRT_TURN_ROUNDS rounds of turns).
 5b. K7 (K-candidate batching).  k7_chunk: the persistent
    ``volpath_primal_k_kernel`` against the one-ray-per-thread
    ``volpath_primal_k_direct_kernel`` at K = 2, 4, 8 on every lane of
@@ -123,9 +126,9 @@ so nothing is timed meanwhile):
    against ``volpath_flat._drt_backward_flat`` on all 524,288 reservoirs
    of the step: equal wavefront maxima K_A and K_B, per-lane t_sel, wsum
    and found equal on >= 0.90 of lanes, gradients' relative L1 <= 1e-2;
-   and the term with the persistent NEE kernel against the
-   one-thread-per-vertex one on the same reservoirs (nee, trips_b and K_B
-   bit for bit, the NEE launch timed in turns before the worker starts).  The adjoint slice's
+   and on the same reservoirs phase 5a's ``drt_turns`` and
+   ``drt_walk_causes`` (both walks on the vertices in order, shuffled, and
+   one per lane: ns per warp iteration; timed before the worker starts).  The adjoint slice's
    twin runs in a worker process beside the other two (``submit_twin``),
    and every twin runs under ``torch.inference_mode``
    (``twins_without_autograd``): the same ops, less host time per op.
@@ -174,7 +177,7 @@ so nothing is timed meanwhile):
    with K3 on the XML render's first chunk, its error and plain time on
    that chunk; K7's row (``k_candidate_batching``) the K=4 kernel's time
    and bound on janga's chunk with the other K's times, its launches from
-   k7_train; the one-ray-per-thread K7 and DRT NEE kernels as
+   k7_train; the one-ray-per-thread K7 and DRT walk and NEE kernels as
    ``comparison_only`` rows (0 launches on the main path).  With
    UIVR_KCAND unset the main path must launch no K7 kernel.
    ``launches_per_train_step`` is the counters' growth over the main
@@ -182,12 +185,19 @@ so nothing is timed meanwhile):
 11. the last line: {"ok": true, "device": {...}}.
 
 ``bound_ms`` is the larger of the bytes the function must move (each input
-read once, each output written once) over 3.35 TB/s and its operations
-over 67 T/s, the H100 SXM's float32 rate outside the tensor cores (used for
-the integer hash too).  The primal kernel's operations are counted from
-this run's per-lane tracking steps and draws: ``FLOP_PER_STEP`` per
-tracking event and ``FLOP_PER_EXTRA_DRAW`` per draw beyond the two every
-event takes (one per real collision, four per scatter with NEE).
+read once, each output written once) over 3.35 TB/s and its operations:
+float operations over 67 T/s, the H100 SXM's float32 rate outside the
+tensor cores (128 lanes a SM, an FMA as two), and the TEA hashes' integer
+operations (``TEA_OPS_PER_ROUND`` a round: the instructions of a round
+that run on the integer pipe) over the INT32 rate, 64 lanes a SM per
+clock x 132 SMs at ``SM_CLOCK_HZ`` (16.7 T/s); the two pipes run side by
+side, so the operations take the longer of the two times.  The
+walking kernels' operations are counted from this run's per-lane tracking
+steps and draws: ``FLOP_PER_STEP`` float operations per tracking event,
+and a ``LANE_DRAW_ROUNDS``-round hash per draw (two per event at least,
+one more per real collision, four per scatter with NEE).  A wavefront
+draw of the delayed DRT term needs an 8-round hash against its vertex,
+and its counter's 4-round pre-hash once for all vertices.
 ``gather_bound_ms`` counts instead the bytes the events fetch: 132 B of
 grid and majorant per event (8 B, majorant and subcell bound, for an event
 K6 classified), 28 B of envmap per scatter, 36 B per ray.  The training
@@ -207,10 +217,16 @@ import numpy as np
 
 HERE = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-FLOP_PER_STEP = 120
-FLOP_PER_EXTRA_DRAW = 60
-TEA_OPS_PER_ROUND = 17
+SM_CLOCK_HZ = 1.98e9      # the H100 SXM's boost clock, at which its peak rates hold
+SMS = 132
+FP32_OPS_PER_S = 67e12    # 128 FP32 lanes a SM per clock, an FMA as two operations
+INT32_OPS_PER_S = 64 * SMS * SM_CLOCK_HZ
+FLOP_PER_STEP = 120       # float operations of a tracking event, its draws apart
+# integer-pipe instructions of one TEA round as nvcc builds it for sm_90a:
+# 2 LEA, 2 LEA.HI and 2 LOP3 (its 4 adds run as VIADD and IMAD.IADD on
+# the FMA pipe; cuobjdump -sass of tea(v0, v1, 8))
+TEA_OPS_PER_ROUND = 6
+LANE_DRAW_ROUNDS = 5      # a walking kernel's per-lane draw (core/rng._DRAW_ROUNDS)
 
 
 T0 = time.perf_counter()
@@ -223,10 +239,26 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, n_int_ops=0):
+    """(least ms, "bytes" or "operations") of n_bytes moved, n_ops float
+    and n_int_ops integer operations."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = max(n_ops / FP32_OPS_PER_S, n_int_ops / INT32_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def tracking_ops(steps, draws):
+    """(float, integer) operations of ``steps`` tracking events that
+    consumed ``draws`` per-lane draws (at least two an event)."""
+    return (FLOP_PER_STEP * steps,
+            max(draws, 2 * steps) * LANE_DRAW_ROUNDS * TEA_OPS_PER_ROUND)
+
+
+def wavefront_ops(draws, counters):
+    """Integer operations of ``draws`` wavefront draws over ``counters``
+    distinct counters: an 8-round hash each, a 4-round pre-hash each
+    counter."""
+    return (8 * draws + 4 * counters) * TEA_OPS_PER_ROUND
 
 
 def cuda_ms(fn, reps):
@@ -342,6 +374,11 @@ def event_fetch_bytes(events, cls):
 # ------------------------------------------------------------------ training
 DRT_KERNELS = ("volpath_drt_walk", "volpath_drt_nee", "volpath_drt_phase",
                "volpath_drt_scatter")
+# rounds of turns (persistent, direct, direct, persistent) in which
+# drt_turns times the DRT walk and NEE
+DRT_TURN_ROUNDS = 4
+# the walk's per-vertex outputs
+DRT_WALK_OUT = ("t_sel", "wsum", "found", "trips_a", "p", "sel_sig", "sel_alb")
 ADJ_KERNELS = ("volpath_adjoint", "volpath_primal_state") + DRT_KERNELS
 TRAIN_KERNELS = ("volpath_primal",) + ADJ_KERNELS
 SLICE = 8192    # lanes of a training step's adjoint call held against the twin
@@ -732,13 +769,66 @@ def _check_drt_twin(cfg, sc, dr):
     return acc_t, p, ms, (t1 - t0) * 1e3
 
 
-def drt_nee_turns(vs, cfg, sc, seed, res, adjoint, measure=True):
+def trips_summary(trips):
+    """Max, p50, p90, p99, mean and sum of per-vertex trip counts."""
+    import torch
+    x = trips.to(torch.float64)
+    if x.numel() == 0:
+        return {"n": 0}
+    q = torch.quantile(x, torch.tensor([0.5, 0.9, 0.99], dtype=torch.float64,
+                                       device=x.device)).tolist()
+    return {"n": int(x.numel()), "max": int(x.max()), "p50": q[0], "p90": q[1], "p99": q[2],
+            "mean": float(x.mean()), "sum": int(x.sum())}
+
+
+def launch_turns(vs, run, turns):
+    """CUDA-event times (ms) of the launches of ``run(x)`` for each x of
+    ``turns`` (``volpath_step.TIMINGS``): per turn, {kernel: ms}."""
+    import torch
+    saved, vs.TIMINGS = vs.TIMINGS, []
+    try:
+        out = []
+        for x in turns:
+            start = len(vs.TIMINGS)
+            run(x)
+            out.append(vs.TIMINGS[start:])
+        torch.cuda.synchronize()
+        times = []
+        for t in out:
+            ms = {}
+            for key, a, b in t:
+                ms[key] = ms.get(key, 0.0) + a.elapsed_time(b)
+            times.append(ms)
+        return times
+    finally:
+        vs.TIMINGS = saved
+
+
+def warp_iterations(steps, width=32):
+    """Warp iterations of a one-ray-per-thread launch: the sum over groups
+    of ``width`` consecutive rays of the group's longest walk."""
+    import torch
+    s = steps.to(torch.int64)
+    g = torch.cat([s, s.new_zeros((-s.numel()) % width)]).reshape(-1, width)
+    return int(g.max(dim=1).values.sum())
+
+
+def drt_turns(vs, cfg, sc, seed, res, adjoint, measure=True):
     """The delayed DRT term on one step's reservoirs with the persistent
-    NEE kernel and with the one-thread-per-vertex one it replaced
-    (``direct``): nee, trips_b and K_B bit for bit (with the walk's K_A and
-    the resumed paths), and with ``measure`` the NEE launch's time in turns
-    (persistent, direct, direct, persistent) from CUDA events around it
-    (``volpath_step.TIMINGS``)."""
+    walk and NEE kernels and with the one-thread-per-vertex ones they
+    replaced (``direct``): the walk's outputs (DRT_WALK_OUT) and K_A, the
+    NEE's nee, trips_b and K_B bit for bit; the walk's trips over the
+    vertices that walk, the lane utilization of both walks (the direct one
+    from its per-vertex trips, by warps and by blocks of 128), the
+    persistent grid's lanes and the warp iterations of both walks (the
+    persistent one's from its per-warp counters, the direct one's from
+    its trips); with ``measure`` the walk's and the NEE's launches in
+    DRT_TURN_ROUNDS rounds of turns (persistent, direct, direct,
+    persistent), once while the two checked runs' outputs are held and
+    once after they are released (``stats_released``: the later launches'
+    buffers then lie elsewhere), and each walk's time per warp iteration
+    of a resident warp (both walks hold 7 blocks of 128 threads a SM, the
+    persistent grid's warps)."""
     import torch
     from uivr_tpu_torch.scene.gradients import init_accum
 
@@ -747,26 +837,143 @@ def drt_nee_turns(vs, cfg, sc, seed, res, adjoint, measure=True):
                                       init_accum(sc.medium, need_emission=False),
                                       return_stats=stats, direct=direct)
     (_, p), (_, d) = term(False), term(True)
-    eq = {"nee": torch.equal(p["nee"], d["nee"]), "trips_b": torch.equal(p["trips_b"], d["trips_b"]),
-          "K_B": p["k_b"] == d["k_b"], "K_A": p["k_a"] == d["k_a"],
-          "path_state_active": torch.equal(p["path_state"].active, d["path_state"].active)}
-    rec = {"equal_to_direct": eq, "K_B": p["k_b"], "walks": int((p["trips_b"] > 0).sum()),
-           "trips": int(p["trips_b"].sum())}
+    walk_eq = {f: torch.equal(p[f], d[f]) for f in DRT_WALK_OUT}
+    walk_eq["K_A"] = p["k_a"] == d["k_a"]
+    walk_eq["path_state_active"] = torch.equal(p["path_state"].active, d["path_state"].active)
+    ta, util = p["trips_a"], p["walk_util"]
+    walkers = int(res.active.sum())
+    warps = int((util[:, 1] > 0).sum())
+    lanes = 32 * warps
+    iters = util[:warps, 1].to(torch.float64)
+    walk = {"equal_to_direct": walk_eq, "K_A": p["k_a"], "walkers": walkers,
+            "vertices": int((res.active & p["found"]).sum()),
+            "trips": trips_summary(ta[res.active]),
+            "utilization_direct": warp_utilization(ta),
+            "utilization_direct_blocks": warp_utilization(ta, 128),
+            "utilization_persistent": util_share(util), "grid_lanes": lanes,
+            "reservoirs_per_lane": ta.numel() / max(lanes, 1),
+            "walkers_per_lane": walkers / max(lanes, 1),
+            "warp_iterations": {"direct": warp_iterations(ta), "persistent": int(iters.sum()),
+                                "persistent_mean": float(iters.mean()),
+                                "persistent_max": int(iters.max())}}
+    nee = None
+    if cfg.use_nee:
+        nee_eq = {"nee": torch.equal(p["nee"], d["nee"]),
+                  "trips_b": torch.equal(p["trips_b"], d["trips_b"]), "K_B": p["k_b"] == d["k_b"]}
+        nee = {"equal_to_direct": nee_eq, "K_B": p["k_b"], "walks": int((p["trips_b"] > 0).sum()),
+               "trips": int(p["trips_b"].sum())}
     if measure:
-        saved, vs.TIMINGS = vs.TIMINGS, []
-        try:
-            for direct in (False, True, True, False):
-                term(direct, stats=False)
-            torch.cuda.synchronize()
-            t = [a.elapsed_time(b) for key, a, b in vs.TIMINGS
-                 if key in ("volpath_drt_nee", "volpath_drt_nee_direct")]
-        finally:
-            vs.TIMINGS = saved
-        rec.update({"ms_persistent": (t[0] + t[3]) / 2, "ms_direct": (t[1] + t[2]) / 2,
-                    "turns_ms": t})
-    if not all(eq.values()):
-        raise RuntimeError(f"drt_nee: the persistent kernel differs from the direct one: {eq}")
-    return rec
+        order = (False, True, True, False) * DRT_TURN_ROUNDS
+
+        def turns():
+            times = launch_turns(vs, lambda x: term(x, stats=False), order)
+            out = {}
+            for key in ("volpath_drt_walk", "volpath_drt_nee"):
+                t = [ms.get(key, ms.get(key + "_direct")) for ms in times]
+                if None in t:
+                    continue
+                per = [x for x, direct in zip(t, order) if not direct]
+                dir_ = [x for x, direct in zip(t, order) if direct]
+                out[key] = {"ms_persistent": float(np.mean(per)), "ms_direct": float(np.mean(dir_)),
+                            "ms_persistent_median": float(np.median(per)),
+                            "ms_direct_median": float(np.median(dir_)),
+                            "rounds_persistent_slower": sum(
+                                per[2 * r] + per[2 * r + 1] > dir_[2 * r] + dir_[2 * r + 1]
+                                for r in range(DRT_TURN_ROUNDS)),
+                            "rounds": DRT_TURN_ROUNDS, "turns_ms": t}
+            return out
+        alive = turns()
+        del p, d, ta, util
+        released = turns()
+        for rec, key in ((walk, "volpath_drt_walk"), (nee, "volpath_drt_nee")):
+            if rec is not None:
+                rec.update(alive[key], stats_released=released[key])
+        it = walk["warp_iterations"]
+        walk["ns_per_warp_iteration"] = {
+            "direct": walk["ms_direct"] * 1e6 * warps / max(it["direct"], 1),
+            "persistent": walk["ms_persistent"] * 1e6 * warps / max(it["persistent"], 1)}
+    if not all(walk_eq.values()) or (nee and not all(nee["equal_to_direct"].values())):
+        raise RuntimeError(f"drt: the persistent walk or NEE differs from the direct one: "
+                           f"{walk_eq}, {nee and nee['equal_to_direct']}")
+    return walk, nee
+
+
+# byte offsets of the persistent walk's work counter in a scratch buffer,
+# at which drt_walk_causes times the walk
+COUNTER_OFFSETS = tuple(range(0, 16384, 256))
+
+
+def drt_walk_causes(vs, cfg, sc, seed, res, adjoint, lanes):
+    """What the persistent DRT walk pays per warp iteration against the
+    direct one, on one step's reservoirs: both walks on the vertices in
+    order, in a random order (locality: the draws are keyed by the
+    vertex, so these are other walks of the same distribution) and on the
+    first ``lanes`` vertices only (the persistent grid's lanes: each lane
+    walks one vertex in both kernels, in the same warps, so nothing is
+    refilled and only the scheduler differs).  Per input and kernel: the
+    warp iterations, the walk's ms (in two rounds of turns, forward and
+    back) and its ns per warp iteration of a resident warp.  Then the
+    persistent walk alone on the vertices in order, launched with its work
+    counter at each of COUNTER_OFFSETS in a scratch buffer (two passes,
+    forward and back; the addresses of the buffer and of K_A's counts
+    beside them)."""
+    import ctypes
+    import torch
+    from uivr_tpu_torch.scene.gradients import init_accum
+    perm = torch.randperm(res.o_l.shape[0], generator=torch.Generator().manual_seed(seed))
+    perm = perm.to(res.o_l.device)
+    inputs = {"ordered": (res, adjoint),
+              "shuffled": (type(res)(*[f[perm] for f in res]), adjoint[perm].contiguous()),
+              "one_per_lane": (type(res)(*[f[:lanes] for f in res]), adjoint[:lanes])}
+
+    def term(x, stats=False):
+        r, adj = inputs[x[0]]
+        return vs.drt_backward_kernel(cfg, sc, seed, r, adj,
+                                      init_accum(sc.medium, need_emission=False),
+                                      return_stats=stats, direct=x[1] == "direct")
+    configs = [(k, kind) for k in inputs for kind in ("direct", "persistent")]
+    iters = {}
+    for c in configs:
+        st = term(c, stats=True)[1]
+        iters[c] = warp_iterations(st["trips_a"]) if c[1] == "direct" else \
+            int(st["walk_util"][:, 1].sum())
+    order = (configs + configs[::-1]) * 2
+    times = launch_turns(vs, term, order)
+    out = {}
+    for c in configs:
+        t = [ms.get("volpath_drt_walk", ms.get("volpath_drt_walk_direct"))
+             for ms, x in zip(times, order) if x == c]
+        ms = float(np.mean(t))
+        out.setdefault(c[0], {})[c[1]] = {
+            "ms": ms, "turns_ms": t, "warp_iterations": iters[c],
+            "ns_per_warp_iteration": ms * 1e6 * (lanes // 32) / max(iters[c], 1)}
+    lib, dev = vs._load("drt"), res.o_l.device
+    D = vs.drt_params(cfg, sc, seed, res, adjoint, init_accum(sc.medium, need_emission=False))[0]
+    buf = torch.zeros(COUNTER_OFFSETS[-1] // 8 + 1, dtype=torch.int64, device=dev)
+    stream = vs._stream(dev)
+
+    def walk(off):
+        rc = lib.volpath_drt_launch(ctypes.byref(D), 0, int(cfg.use_drt_mis),
+                                    buf.data_ptr() + off, None, stream)
+        if rc != 0:
+            raise RuntimeError(f"drt_walk_causes: the walk's launch failed ({rc})")
+    walk(0)
+    marks = []
+    for off in COUNTER_OFFSETS + COUNTER_OFFSETS[::-1]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        walk(off)
+        ev[1].record()
+        marks.append((off, ev))
+    torch.cuda.synchronize()
+    by_off = {}
+    for off, (a, b) in marks:
+        by_off.setdefault(off, []).append(a.elapsed_time(b))
+    ms = [float(np.mean(by_off[off])) for off in COUNTER_OFFSETS]
+    out["counter_placement"] = {"offsets": list(COUNTER_OFFSETS), "ms": ms, "min": min(ms),
+                                "median": float(np.median(ms)), "max": max(ms),
+                                "buffer_address": buf.data_ptr(), "counts_address": D.counts}
+    return out
 
 
 def check_step(card, vs, tag, step):
@@ -786,8 +993,9 @@ def check_step(card, vs, tag, step):
     n = a["o"].shape[0]
     sl = slice(n - SLICE, n)
     # timed before the worker starts (it shares the card)
-    nee = drt_nee_turns(vs, cfg, sc, dr["seed"], dr["res"], dr["adjoint"]) if cfg.use_nee \
-        else None
+    walk, nee = drt_turns(vs, cfg, sc, dr["seed"], dr["res"], dr["adjoint"])
+    walk["causes"] = drt_walk_causes(vs, cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
+                                     walk["grid_lanes"])
     adj_twin = submit_twin("adjoint_walk", (1, 2), cfg, sc, a["o"][sl].clone(),
                            a["d"][sl].clone(), a["seed"], a["dL"][sl].clone(),
                            a["L"][sl].clone(), lane0=n - SLICE, deferred=True)
@@ -826,7 +1034,7 @@ def check_step(card, vs, tag, step):
     rec = {"phase": "drt", "step": tag, "reservoirs": n,
            "vertices": int((dr["res"].active & k["found"]).sum()),
            "K_A": k["k_a"], "K_B": k["k_b"], "recursive_cls": cls_counts(k["rec_stats"]["cls"]),
-           "nee_persistent_vs_direct": nee, "card": card}
+           "walk_persistent_vs_direct": walk, "nee_persistent_vs_direct": nee, "card": card}
     acc_t, p, drt_plain_ms, drt_plain_total_ms = drt_twin
     both = k["path_state"].active & p["path_state"].active
     agree = {f: equal_frac(k[f], p[f]) for f in ("t_sel", "wsum", "found")}
@@ -889,8 +1097,12 @@ def step_turns(vs, loop, run, idx, k7_only=False):
     launched only the walking kernels of its kind.  ``k7_only``: only the
     K7 launches change kind (a step under UIVR_KCAND > 1)."""
     import contextlib
+    direct_kinds = ("volpath_primal_direct", "volpath_adjoint_direct", "volpath_drt_walk_direct",
+                    "volpath_primal_state_direct")
+    persistent_kinds = ("volpath_primal", "volpath_adjoint", "volpath_drt_walk",
+                        "volpath_primal_state")
     walking = ("volpath_primal_k_direct", "k_candidate") if k7_only else (
-        "volpath_primal_direct", "volpath_adjoint_direct", "volpath_primal", "volpath_adjoint")
+        direct_kinds + persistent_kinds)
     t, counts = [], []
     for direct in (True, False, False, True):
         with (Direct(vs, k7_only) if direct else contextlib.nullcontext()), \
@@ -905,10 +1117,8 @@ def step_turns(vs, loop, run, idx, k7_only=False):
             others = [c["k_candidate"] - c["volpath_primal_k_direct"]] if direct else \
                 [c["volpath_primal_k_direct"]]
         else:
-            kinds = [c["volpath_primal_direct"], c["volpath_adjoint_direct"]] if direct else \
-                [c["volpath_primal"], c["volpath_adjoint"]]
-            others = [c["volpath_primal"], c["volpath_adjoint"]] if direct else \
-                [c["volpath_primal_direct"], c["volpath_adjoint_direct"]]
+            kinds = [c[k] for k in (direct_kinds if direct else persistent_kinds)]
+            others = [c[k] for k in (persistent_kinds if direct else direct_kinds)]
         if min(kinds) == 0 or max(others) > 0:
             raise RuntimeError(f"step A/B: a {'direct' if direct else 'persistent'} step "
                                f"launched other kernels: {c}")
@@ -1167,7 +1377,7 @@ def adjoint_bound(n, stats, cfg, scene):
     extra_draws = int(stats["alt_dim"].sum()) + max(0, int(stats["dim"].sum()) - 2 * events)
     grads = scene.medium.params.sigma_t[..., 0].numel() * 16
     req = bound(table_bytes(scene) + grads + 137 * n,
-                FLOP_PER_STEP * events + FLOP_PER_EXTRA_DRAW * extra_draws)
+                *tracking_ops(events, 2 * events + extra_draws))
     gather_ms, _ = bound(event_fetch_bytes(events, cls_counts(stats["cls"])) + 128 * real
                          + 32 * (samples + replay) + 120 * n, 0)
     return req, gather_ms, {"events": events, "real_collisions": real,
@@ -1176,12 +1386,12 @@ def adjoint_bound(n, stats, cfg, scene):
 
 def drt_bounds(n, k, res, scene):
     """Least times of the four DRT kernels at this run's counts, from the
-    bytes they must move (tables read once, per-lane I/O, the gradient grids
-    written once) against their operations (4 + 8 TEA rounds per wavefront
-    draw, FLOP_PER_STEP per tracking step); and the bytes their steps fetch
-    (132 B per step, 128 B of reads and 128 B of atomics per scattered
-    vertex) as ``gather_ms``."""
-    hash_ops = TEA_OPS_PER_ROUND * 12
+    bytes they must move (tables read once, per-lane I/O, the gradient
+    grids written once) against their operations (wavefront_ops per draw,
+    FLOP_PER_STEP per tracking step); and the bytes their steps fetch (132
+    B per step) as ``gather_ms``.  The scatter reads the sigma and albedo
+    the walk kept (16 B) instead of 128 B of corners and adds 128 B of
+    atomics per vertex."""
     trips_a = int(k["trips_a"].sum())
     trips_b = int(k["trips_b"].sum())
     active = int((res.active & k["found"]).sum())
@@ -1189,20 +1399,21 @@ def drt_bounds(n, k, res, scene):
     m = scene.medium
     grids = m.grid.numel() * 4
     grads = m.params.sigma_t[..., 0].numel() * 16
+    walk_io = n * (29 + 26 + 16)
     req = {
-        "volpath_drt_walk": bound(grids + m.majorant_grid.numel() * 4 + n * (29 + 26),
-                                  trips_a * (2 * hash_ops + FLOP_PER_STEP)),
-        "volpath_drt_nee": bound(tables + n * (25 + 16),
-                                 trips_b * (hash_ops + FLOP_PER_STEP) + 2 * hash_ops * active),
-        "volpath_drt_phase": bound(n * (12 + 8 + 1 + 48 + 9), n * (2 * hash_ops + 100)),
-        "volpath_drt_scatter": bound(grids + grads + n * 1 + active * (12 + 4 + 36),
-                                     active * 150),
+        "volpath_drt_walk": bound(grids + m.majorant_grid.numel() * 4 + walk_io,
+                                  FLOP_PER_STEP * trips_a,
+                                  wavefront_ops(2 * trips_a, 2 * k["k_a"])),
+        "volpath_drt_nee": bound(tables + n * (25 + 16), FLOP_PER_STEP * trips_b,
+                                 wavefront_ops(trips_b + 2 * active, 2 + k["k_b"])),
+        "volpath_drt_phase": bound(n * (12 + 8 + 1 + 48 + 9), n * 100, wavefront_ops(2 * n, 2)),
+        "volpath_drt_scatter": bound(grads + n * 1 + active * (12 + 4 + 36 + 16), active * 150),
     }
     gather = {
-        "volpath_drt_walk": 132 * trips_a + n * (29 + 26),
+        "volpath_drt_walk": 132 * trips_a + walk_io,
         "volpath_drt_nee": 132 * trips_b + 28 * active + n * (25 + 16),
         "volpath_drt_phase": n * (12 + 8 + 1 + 48 + 9),
-        "volpath_drt_scatter": n * 1 + active * (12 + 4 + 36 + 128 + 128),
+        "volpath_drt_scatter": n * 1 + active * (12 + 4 + 36 + 16 + 128),
     }
     return req, {key: bound(v, 0)[0] for key, v in gather.items()}, {
         "walk_steps": trips_a, "nee_steps": trips_b, "vertices": active}
@@ -1210,10 +1421,10 @@ def drt_bounds(n, k, res, scene):
 
 def training_kernels(train, truth, check):
     """Kernel-line entries of the training path's kernels: launches in the
-    main run (and in its first step); times of their launches in the recorded step from
-    the ground-truth grids (walks as long as late in a run), with bounds
-    from that step's counts; plain times and errors from ``check_step`` on
-    that step."""
+    main run (and in its first step); times of their launches in the
+    recorded step from the ground-truth grids (walks as long as late in a
+    run), with bounds from that step's counts; plain times and errors from
+    ``check_step`` on that step."""
     runs = {k: {"launches": train["launches"][k],
                 "launches_per_train_step": train["iterations"][0]["launches"][k]}
             for k in TRAIN_KERNELS}
@@ -1225,7 +1436,7 @@ def training_kernels(train, truth, check):
     rec_steps = int(k["rec_stats"]["steps"].sum())
     rec_extra = max(0, int(k["rec_stats"]["dim"].sum()) - 2 * rec_steps)
     s_bound, s_by = bound(table_bytes(scene) + n * (49 + 13),
-                          FLOP_PER_STEP * rec_steps + FLOP_PER_EXTRA_DRAW * rec_extra)
+                          *tracking_ops(rec_steps, 2 * rec_steps + rec_extra))
     s_gather, _ = bound(event_fetch_bytes(rec_steps, cls_counts(k["rec_stats"]["cls"]))
                         + 28 * rec_extra / 5 + 49 * n, 0)
     d_req, d_gather, d_counts = drt_bounds(n, k, truth["drt"]["res"], scene)
@@ -1329,8 +1540,7 @@ def k7_bound(o, sc, c):
     proxy = getattr(em, "nee", None)
     tables = table_bytes(sc) + (0 if proxy is None else 4 * sum(
         t.numel() for t in (proxy.alias_tab, proxy.row_pmf, proxy.cond_pmf)))
-    req = bound(24 * n + tables + 13 * n,
-                FLOP_PER_STEP * c["cell_steps"] + FLOP_PER_EXTRA_DRAW * extra)
+    req = bound(24 * n + tables + 13 * n, *tracking_ops(c["cell_steps"], c["dim"]))
     gather, _ = bound(4 * c["cell_steps"] + 128 * c["fetched"] + 28 * extra / 5 + 36 * n, 0)
     return req, gather
 
@@ -1644,19 +1854,19 @@ def finish_variant_builds(jobs):
 
 class Direct:
     """Within: the wrappers' walking launches take the one-ray-per-thread
-    kernels (``direct=True``), for the A/B of a whole training step; with
-    ``k7_only`` only the K7 launches (``k_cand > 1``) do."""
+    kernels (``direct=True``; the DRT term's walk and NEE too), for the A/B
+    of a whole training step; with ``k7_only`` only the K7 launches
+    (``k_cand > 1``) do."""
 
     def __init__(self, vs, k7_only=False):
         self.vs, self.k7_only, self.saved = vs, k7_only, {}
 
     def __enter__(self):
-        names = ("sample_primal_kernel",) if self.k7_only else ("sample_primal_kernel",
-                                                                 "adjoint_walk_kernel")
+        names = ("sample_primal_kernel",) if self.k7_only else (
+            "sample_primal_kernel", "adjoint_walk_kernel", "drt_backward_kernel")
         for name in names:
             fn = getattr(self.vs, name)
             self.saved[name] = fn
-
             def run(*a, _fn=fn, **k):
                 return _fn(*a, direct=not self.k7_only or k.get("k_cand", 1) > 1, **k)
             setattr(self.vs, name, run)
@@ -1817,10 +2027,11 @@ def training_chunks(b, seed=77):
 def phase_persistent(card, vs, dev, janga, dust, render_chunk, variants, measure=True):
     """The persistent walking kernels against the direct ones at the main
     path's shapes (janga-smoke's render chunk and a truth training step's
-    forward chunk, replay, adjoint and DRT resume; dust-devil's render
-    chunk): equal on every lane, utilization before and after, and with
-    ``measure`` times in turns.  With ``variants`` (``--sweep``): the
-    minimum-blocks sweep (ptxas' registers and spills, times).
+    forward chunk, replay, adjoint, DRT walk, NEE and the path state's
+    primal; dust-devil's render chunk): equal on every lane, utilization
+    before and after, and with ``measure`` times in turns.  With
+    ``variants`` (``--sweep``): the minimum-blocks sweep (ptxas' registers
+    and spills, times).
     Returns {launch: record} for the kernels line."""
     import torch
     from uivr_tpu_torch.config import get_int_config
@@ -1845,9 +2056,10 @@ def phase_persistent(card, vs, dev, janga, dust, render_chunk, variants, measure
     adjoint = _reservoir_get(res) * dL
     _, drt = vs.drt_backward_kernel(cfg, sc, seed + 1, res, adjoint,
                                     init_accum(sc.medium, need_emission=False), return_stats=True)
-    out["drt_nee"] = dict(drt_nee_turns(vs, cfg, sc, seed + 1, res, adjoint, measure),
-                          phase="persistent_drt_nee", launch="janga-smoke truth DRT NEE",
-                          reservoirs=n)
+    walk, nee = drt_turns(vs, cfg, sc, seed + 1, res, adjoint, measure)
+    common = dict(phase="persistent_drt", reservoirs=n)
+    out["drt_walk"] = dict(walk, launch="janga-smoke truth DRT walk", **common)
+    out["drt_nee"] = dict(nee, launch="janga-smoke truth DRT NEE", **common)
     from uivr_tpu_torch.core.rng import sample_tea_32
     rec_seed, _ = sample_tea_32(seed + 1, 0x7177)
     out["state"], _ = persistent_chunk(vs, "janga-smoke truth DRT resume", cfg, sc, None, None,
@@ -2039,8 +2251,7 @@ def k3b_chunk_bound(o, sc, stats):
     extra = int(stats["dim"].sum()) - 2 * steps
     tables = m.grid.numel() + m.majorant_grid.numel() + m.sub.numel() + em.data.numel() \
         + sum(t.numel() for t in (em.nee.alias_tab, em.nee.row_pmf, em.nee.cond_pmf))
-    req = bound(24 * n + 4 * tables + 13 * n,
-                FLOP_PER_STEP * steps + FLOP_PER_EXTRA_DRAW * extra)
+    req = bound(24 * n + 4 * tables + 13 * n, *tracking_ops(steps, 2 * steps + extra))
     gather, _ = bound(event_fetch_bytes(steps, cls_counts(stats["cls"])) + 28 * extra / 5
                       + 36 * n, 0)
     return req, gather, {"tracking_steps": steps, "extra_draws": extra}
@@ -2365,6 +2576,9 @@ def main(argv=None):
                          text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(card, flush=True)
+    max_clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                "--format=csv,noheader"], capture_output=True,
+                               text=True).stdout.strip()
     t0 = time.time()
     fmad_proc, fmad_lib = build_fmad_variant()
     variant_jobs = start_variant_builds() if sweep else {}
@@ -2383,7 +2597,14 @@ def main(argv=None):
           "build_s": round(build_s, 3),
           "nvcc_s": {k: b["seconds"] for k, b in vs.BUILD.items()},
           "ptxas": {k: ptxas_report(b["log"]) for k, b in vs.BUILD.items()},
-          "ptxas_variants": {f"{k}-{v}": r for (k, v), (_, r) in variants.items()}})
+          "ptxas_variants": {f"{k}-{v}": r for (k, v), (_, r) in variants.items()},
+          "bound_rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "fp32_ops_per_s": FP32_OPS_PER_S,
+                          "int32_ops_per_s": INT32_OPS_PER_S, "sm_clock_hz": SM_CLOCK_HZ,
+                          "sms": SMS, "sm_clock_max": max_clock,
+                          "lane_draw_rounds": rng._DRAW_ROUNDS}})
+    if rng._DRAW_ROUNDS != LANE_DRAW_ROUNDS:
+        raise RuntimeError(f"the kernels draw with {rng._DRAW_ROUNDS} rounds, the bounds "
+                           f"count {LANE_DRAW_ROUNDS}")
 
     rs = np.random.RandomState(20260417)
     # ---------------------------------------------------------- 2. tea
@@ -2606,8 +2827,7 @@ def main(argv=None):
         + m.sub.numel() * 4 \
         + sum(t.numel() * 4 for t in (em.data, em.alias_tab, em.row_pmf, em.cond_pmf))
     out_bytes = n * (12 + 1)
-    k_bound, k_by = bound(in_bytes + out_bytes,
-                          FLOP_PER_STEP * steps + FLOP_PER_EXTRA_DRAW * extra_draws)
+    k_bound, k_by = bound(in_bytes + out_bytes, *tracking_ops(steps, 2 * steps + extra_draws))
     scatters = extra_draws / 5
     chunk_cls = cls_counts(sk["cls"])
     gather_ms, _ = bound(event_fetch_bytes(steps, chunk_cls) + 28 * scatters + 36 * n, 0)
@@ -2634,7 +2854,7 @@ def main(argv=None):
     tea_launch()
     t_ms = cuda_ms(tea_launch, 20)
     tp_ms = cuda_ms(lambda: rng.tea_plain(t0_, t1_, tea_rounds), 5)
-    t_bound, t_by = bound(16 * n, TEA_OPS_PER_ROUND * tea_rounds * n)
+    t_bound, t_by = bound(16 * n, 0, TEA_OPS_PER_ROUND * tea_rounds * n)
     kernels = [
         {"name": "tea", "route": "cuda", "source": "uivr_tpu_torch/ops/csrc/rng.cuh",
          "replaces": "uivr_tpu/ops/volpath_step.py:71", "launches": launches["tea"],
@@ -2737,22 +2957,31 @@ def main(argv=None):
          "shape": f"volpath_primal_k_direct_kernel<4>, {n} rays, janga-smoke render chunk"})
     if k7_train["launches"]["volpath_primal_k_direct"] != 0:
         raise RuntimeError("the main path launched volpath_primal_k_direct")
-    nee = check["nee_persistent_vs_direct"]
     by_name = {k["name"]: k for k in kernels}
-    by_name["volpath_drt_nee"].update({"redesigned": "persistent",
-                                       "ms_persistent_same_shape": nee["ms_persistent"],
-                                       "ms_direct_same_shape": nee["ms_direct"],
-                                       "equal_to_direct": all(nee["equal_to_direct"].values())})
-    base = by_name["volpath_drt_nee"]
-    kernels.append({
-        "name": "volpath_drt_nee_direct", "route": "cuda", "source": base["source"],
-        "replaces": base["replaces"], "comparison_only": True,
-        "launches": train["launches"]["volpath_drt_nee_direct"],
-        "max_abs_err": base["max_abs_err"], "ms": nee["ms_direct"], "plain_ms": base["plain_ms"],
-        "bound_ms": base["bound_ms"], "bound_by": base["bound_by"], "library_ms": None,
-        "shape": base["shape"]})
-    if train["launches"]["volpath_drt_nee_direct"] != 0:
-        raise RuntimeError("the main path launched volpath_drt_nee_direct")
+    # the DRT term's persistent walk and NEE against their direct kernels
+    for name, key in (("volpath_drt_walk", "walk_persistent_vs_direct"),
+                      ("volpath_drt_nee", "nee_persistent_vs_direct")):
+        rec = check[key]
+        base = by_name[name]
+        base.update({"redesigned": "persistent",
+                     "ms_persistent_same_shape": rec["ms_persistent"],
+                     "ms_direct_same_shape": rec["ms_direct"],
+                     "equal_to_direct": all(rec["equal_to_direct"].values())})
+        if name == "volpath_drt_walk":
+            base.update({k: rec[k] for k in ("utilization_direct", "utilization_persistent",
+                                             "grid_lanes", "trips", "warp_iterations",
+                                             "ns_per_warp_iteration")})
+        kernels.append({
+            "name": name + "_direct", "route": "cuda", "source": base["source"],
+            "replaces": base["replaces"], "comparison_only": True,
+            "launches": train["launches"][name + "_direct"],
+            "max_abs_err": base["max_abs_err"], "ms": rec["ms_direct"],
+            "plain_ms": base["plain_ms"], "bound_ms": base["bound_ms"],
+            "bound_by": base["bound_by"], "library_ms": None,
+            "utilization": rec.get("utilization_direct"), "shape": base["shape"]})
+    for name in ("volpath_drt_walk_direct", "volpath_drt_nee_direct"):
+        if train["launches"][name] != 0:
+            raise RuntimeError(f"the main path launched {name}")
     k7_default = {"train": train["launches"]["k_candidate"],
                   "render": {k: v["k_candidate"] for k, v in render_launches.items()}}
     if k7_default["train"] or any(k7_default["render"].values()):

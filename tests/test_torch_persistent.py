@@ -2,18 +2,19 @@
 
 The CUDA kernels ``volpath_primal_kernel``, ``volpath_primal_k_kernel``
 (K7), ``volpath_adjoint_kernel`` and the delayed DRT term's
-``drt_nee_kernel`` run the tasks of ``ops/csrc/persistent.cuh`` and
-``volpath_drt.cuh`` (``PrimalTask``, ``AdjointTask``: one tracking event
-per ``lane_step``; ``PrimalKTask``: one K7 dispatch per ``lane_step_k``;
-``DrtNeeTask``: one ratio-tracking trip) under a scheduler in which a lane
-takes a new ray from a shared work counter as soon as its ray ends.
+``drt_walk_kernel`` and ``drt_nee_kernel`` run the tasks of
+``ops/csrc/persistent.cuh`` and ``volpath_drt.cuh`` (``PrimalTask``,
+``AdjointTask``: one tracking event per ``lane_step``; ``PrimalKTask``:
+one K7 dispatch per ``lane_step_k``; ``DrtWalkTask``, ``DrtNeeTask``: one
+trip) under a scheduler in which a lane takes a new ray from a shared work
+counter as soon as its ray ends.
 Here the same tasks, built for the host with g++, run under an
 emulation of that scheduler: warps of 32 lanes take turns, each claims
 indices for its idle lanes in lane order from one counter, then steps its
 busy lanes once.  Rays then occupy lanes in another order than one thread
 per ray, and every ray must still come out as the one-ray-per-lane build
-(``primal_lane``, ``primal_lane_k``, ``adjoint_lane``, ``drt_nee_lane``)
-and the plain twin give it:
+(``primal_lane``, ``primal_lane_k``, ``adjoint_lane``, ``drt_walk_lane``,
+``drt_nee_lane``) and the plain twin give it:
 
 - the primal, from world rays and from a ``PathState``, on the cube and on
   the sparse smoke (K6 on): radiance bit for bit, escapes, draws, steps
@@ -24,8 +25,11 @@ and the plain twin give it:
   reservoir) bit for bit; its gradients, whose float sums run in another
   order, within ``tests/test_torch_adjoint.py``'s relative L1 (against the
   twin on the cube, whose walk takes seconds on the sparse smoke); on the
-  cube, the DRT term's NEE on those reservoirs: ``nee``, ``trips_b`` and
-  ``K_B`` bit for bit against ``drt_nee_lane``;
+  cube, the DRT term on those reservoirs: the walk (with its table of
+  pre-hashes, whole and cut short) bit for bit against ``drt_walk_lane``,
+  the sigma and albedo it keeps equal to ``sigma_albedo`` at its point,
+  the NEE's ``nee``, ``trips_b`` and ``K_B`` bit for bit against
+  ``drt_nee_lane``;
 - the launch path reads nothing back from tensors: ``primal_params`` and
   ``adjoint_params`` build their blocks from host copies, with every
   device-to-host read refused.
@@ -146,6 +150,24 @@ extern "C" void primal_k_direct(const uivr::PrimalParams* p) {
 extern "C" void drt_walk(const uivr::DrtParams* d) {
   for (int64_t i = 0; i < d->P.n; ++i) uivr::drt_walk_lane(*d, i);
 }
+// the walk with the pre-hashes of counters below n_pre from a table, as
+// each block of drt_walk_kernel builds it
+extern "C" void drt_walk_persistent(const uivr::DrtParams* d, int n_pre, int warps,
+                                    int32_t* who) {
+  std::vector<uint32_t> pre(n_pre);
+  for (int j = 0; j < n_pre; ++j) pre[j] = uivr::wavefront_pre(d->drt_seed, (uint32_t)j);
+  emulate<uivr::DrtWalkTask>(d->P.n, warps, 1,
+                             [&] { return uivr::DrtWalkTask(*d, pre.data(), n_pre); }, who);
+}
+extern "C" int drt_pre_dims() { return (int)uivr::kDrtPreDims; }
+extern "C" void sigma_albedo_at(const uivr::PrimalParams* p, const float* pts, int64_t n,
+                                float* sig, float* alb) {
+  for (int64_t i = 0; i < n; ++i) {
+    uivr::V3 a;
+    uivr::sigma_albedo(*p, uivr::load3(pts, i), sig[i], a);
+    uivr::store3(alb, i, a);
+  }
+}
 extern "C" void drt_nee_persistent(const uivr::DrtParams* d, int warps, int32_t* who) {
   emulate<uivr::DrtNeeTask>(d->P.n, warps, 1, [&] { return uivr::DrtNeeTask(*d); }, who);
 }
@@ -173,6 +195,10 @@ def lib():
     for fn in (lib.drt_walk, lib.drt_nee_direct):
         fn.argtypes = [ctypes.c_void_p]
     lib.drt_nee_persistent.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    lib.drt_walk_persistent.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    lib.sigma_albedo_at.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [
+        ctypes.c_void_p] * 2
     assert lib.sizes(0) == ctypes.sizeof(volpath_step.PrimalParams)
     assert lib.sizes(1) == ctypes.sizeof(volpath_step.AdjParams)
     assert lib.sizes(2) == ctypes.sizeof(volpath_step.DrtParams)
@@ -348,30 +374,49 @@ def test_persistent_adjoint_equals_lanes_and_twin(name, lib, fixtures):
     assert torch.equal(res_p.depth, res_t.depth) and torch.equal(res_p.wsum, res_t.wsum)
     assert _rel_l1(acc_t.sigma, acc_p.sigma) < 1e-4
     assert _rel_l1(acc_t.albedo, acc_p.albedo) < 1e-4
-    _check_drt_nee(lib, cfg, tsc, res_p, dL)
+    _check_drt_tasks(lib, cfg, tsc, res_p, dL)
 
 
-def _check_drt_nee(lib, cfg, tsc, res, dL):
-    """The DRT term's walk on the adjoint's reservoirs, then its NEE under
-    the emulated scheduler and one vertex per call: nee, trips_b and K_B
-    bit for bit."""
+_WALK_OUT = ("t_sel", "wsum", "found", "trips_a", "p", "sel_sig", "sel_alb")
+
+
+def _check_drt_tasks(lib, cfg, tsc, res, dL):
+    """The DRT term on the adjoint's reservoirs, task by task under the
+    emulated scheduler against one vertex per call: the walk (its table of
+    pre-hashes whole, and cut to 2 trips so that later trips hash their
+    own) and its kept sigma and albedo; the NEE."""
     adjoint = (_reservoir_get(res) * dL).contiguous()
-    runs = {}
-    for tag in ("persistent", "direct"):
-        acc = init_accum(tsc.medium, need_emission=False)
-        D, out, _, counts = volpath_step.drt_params(cfg, tsc, SEED, res, adjoint, acc)
-        lib.drt_walk(ctypes.byref(D))
-        if tag == "persistent":
-            who = torch.full((N_RAYS,), -1, dtype=torch.int32)
-            lib.drt_nee_persistent(ctypes.byref(D), WARPS, who.data_ptr())
-            _assert_refilled(who)
-        else:
-            lib.drt_nee_direct(ctypes.byref(D))
-        runs[tag] = (out, counts)
-    (out_p, counts_p), (out_d, counts_d) = runs["persistent"], runs["direct"]
-    assert torch.equal(out_p["nee"], out_d["nee"]) and torch.equal(out_p["trips_b"],
+
+    def term():
+        return volpath_step.drt_params(cfg, tsc, SEED, res, adjoint,
+                                       init_accum(tsc.medium, need_emission=False))
+    D, out_d, _, counts_d = term()
+    lib.drt_walk(ctypes.byref(D))
+    for n_pre in (lib.drt_pre_dims(), 4):
+        Dp, out_p, _, counts_p = term()
+        who = torch.full((N_RAYS,), -1, dtype=torch.int32)
+        lib.drt_walk_persistent(ctypes.byref(Dp), n_pre, WARPS, who.data_ptr())
+        _assert_refilled(who)
+        for k in _WALK_OUT:
+            assert torch.equal(out_p[k], out_d[k]), (n_pre, k)
+        assert torch.equal(counts_p, counts_d)
+    found = out_d["found"]
+    assert int(counts_d[0]) == int(out_d["trips_a"].max()) > 2 and int(found.sum()) > 0
+    sig, alb = torch.empty(N_RAYS), torch.empty(N_RAYS, 3)
+    lib.sigma_albedo_at(ctypes.byref(D.P), out_d["p"].data_ptr(), N_RAYS, sig.data_ptr(),
+                        alb.data_ptr())
+    assert torch.equal(out_d["sel_sig"][found], sig[found])
+    assert torch.equal(out_d["sel_alb"][found], alb[found])
+    # the NEE from those walks: persistent against one vertex per call
+    Dn, out_n, _, counts_n = term()
+    lib.drt_walk(ctypes.byref(Dn))
+    who = torch.full((N_RAYS,), -1, dtype=torch.int32)
+    lib.drt_nee_persistent(ctypes.byref(Dn), WARPS, who.data_ptr())
+    _assert_refilled(who)
+    lib.drt_nee_direct(ctypes.byref(D))
+    assert torch.equal(out_n["nee"], out_d["nee"]) and torch.equal(out_n["trips_b"],
                                                                    out_d["trips_b"])
-    assert torch.equal(counts_p, counts_d)
+    assert torch.equal(counts_n, counts_d)
     assert int(counts_d[1]) == int(out_d["trips_b"].max()) > 1
     assert float(out_d["nee"].abs().sum()) > 0
 

@@ -28,6 +28,7 @@ import torch
 import jax.numpy as jnp
 
 from torch_common import assert_lanes_agree, both_scenes, camera_rays
+from torch_common import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from uivr_tpu.config import cube_test_scene, smoke_scene
 from uivr_tpu.integrators import VolpathConfig as JCfg
 from uivr_tpu.integrators import volpath_flat as jflat

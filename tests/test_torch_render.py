@@ -7,6 +7,7 @@ import torch
 import jax.numpy as jnp
 
 from torch_common import both_scenes
+from torch_common import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from uivr_tpu.config import smoke_scene
 from uivr_tpu.core import exr_io as j_exr
 from uivr_tpu.integrators import VolpathConfig as JCfg

@@ -1,8 +1,12 @@
 """The port's RNG and grids against the JAX package, on the CPU.
 
 RNG streams must be bit-exact (the port's paths depend on every draw);
-trilinear lookups agree to 1e-6 and majorant supergrids exactly.
+trilinear lookups agree to 1e-6 and majorant supergrids exactly.  The
+kernels' wavefront draw from a table of pre-hashes (``rng.cuh``, built for
+the host with g++) equals the draw hashed in full and JAX's sampler.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -14,6 +18,7 @@ from uivr_tpu.core import rng as jrng
 from uivr_tpu.scene.medium import MediumConfig as JMediumConfig
 from uivr_tpu.scene.medium import MediumParams as JMediumParams
 from uivr_tpu.scene.medium import finalize_medium as j_finalize
+from torch_common import host_library
 from uivr_tpu_torch.core import grids as tgrids
 from uivr_tpu_torch.core import rng as trng
 from uivr_tpu_torch.scene.medium import MediumConfig, MediumParams, finalize_medium
@@ -68,6 +73,47 @@ def test_lane_sampler_consume_masks_bit_exact():
     jf, tf = jrng.lane_fork(js, 0x9E3779B9), trng.lane_fork(ts, 0x9E3779B9)
     np.testing.assert_array_equal(np.asarray(jf.h).astype(np.int64), tf.h.numpy())
     assert trng._DRAW_ROUNDS == jrng._DRAW_ROUNDS == 5
+
+
+_DRAW_SRC = r'''#define __host__
+#define __device__
+#include <vector>
+#include "volpath_drt.cuh"
+extern "C" int pre_dims() { return (int)uivr::kDrtPreDims; }
+// draws of dims [0, n_dim) for lanes [0, n_lanes): hashed in full, and
+// from the table of the first kDrtPreDims pre-hashes that drt_walk_kernel
+// builds (later dims hash their own)
+extern "C" void draws(uint32_t seed, int n_dim, int n_lanes, float* full, float* table) {
+  std::vector<uint32_t> pre(uivr::kDrtPreDims);
+  for (uint32_t j = 0; j < uivr::kDrtPreDims; ++j) pre[j] = uivr::wavefront_pre(seed, j);
+  for (int d = 0; d < n_dim; ++d) {
+    for (int l = 0; l < n_lanes; ++l) {
+      full[(int64_t)d * n_lanes + l] = uivr::wavefront_draw(seed, d, l);
+      table[(int64_t)d * n_lanes + l] =
+          uivr::wavefront_draw_at(pre.data(), uivr::kDrtPreDims, seed, d, l);
+    }
+  }
+}
+'''
+
+
+def test_wavefront_draw_from_pre_hash_table():
+    """Every dim below the table's end + 8 on 4096 lanes: the draw from the
+    table equals the draw hashed in full, and the first dims JAX's
+    wavefront sampler."""
+    lib = host_library(_DRAW_SRC, "wavefront-draw")
+    lib.draws.argtypes = [ctypes.c_uint32, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_void_p]
+    seed, lanes = trng.sample_tea_32(4243, 0x5151)[0], 4096
+    n_dim = lib.pre_dims() + 8
+    full = np.empty((n_dim, lanes), np.float32)
+    table = np.empty_like(full)
+    lib.draws(seed, n_dim, lanes, full.ctypes.data, table.ctypes.data)
+    np.testing.assert_array_equal(table, full)
+    js = jrng.make_sampler(jnp.uint32(seed), n_lanes=lanes)
+    for d in range(4):
+        ju, js = jrng.next_1d(js)
+        np.testing.assert_array_equal(np.asarray(ju), full[d])
 
 
 @pytest.mark.parametrize("shape", [(5, 6, 7), (1, 4, 3), (9, 9, 9)])

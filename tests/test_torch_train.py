@@ -29,6 +29,7 @@ import jax
 import jax.numpy as jnp
 
 from torch_common import bundle_to_numpy
+from torch_common import one_torch_thread  # noqa: F401  (autouse: one torch thread)
 from uivr_tpu.config import cube_test_scene
 from uivr_tpu.core import vol_io as j_vol_io
 from uivr_tpu.core.rng import sample_tea_32 as j_tea

@@ -16,10 +16,10 @@
 //
 // A task is one lane's work: begin(i) starts ray i, finished() says its
 // walk is over, step() runs one tracking event (lane_step; one K7
-// dispatch, lane_step_k, in PrimalKTask; one ratio-tracking trip in the
-// delayed DRT term's DrtNeeTask, volpath_drt.cuh), end(i) writes its
-// outputs.  The tasks are host and device code; the host tests drive
-// them through an emulation of the scheduler below.
+// dispatch, lane_step_k, in PrimalKTask; one trip in the delayed DRT
+// term's DrtWalkTask and DrtNeeTask, volpath_drt.cuh), end(i) writes its
+// outputs.  The tasks are host and device code; the host tests drive them
+// through an emulation of the scheduler below.
 #pragma once
 #include "volpath_adjoint.cuh"
 

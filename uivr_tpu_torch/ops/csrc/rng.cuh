@@ -66,14 +66,33 @@ struct LaneRng {
 };
 
 // The wavefront Sampler's draw at shared counter `dim` for lane `lane`:
-// a scalar pre-hash of (dim, seed), then a hash against the lane id.
-__host__ __device__ inline float wavefront_draw(uint32_t seed, uint32_t dim,
-                                                uint32_t lane) {
+// a scalar pre-hash of (dim, seed), then a hash against the lane id.  The
+// pre-hash is the same for every lane, so a kernel whose lanes draw at the
+// same counters can hash it once into a table (wavefront_draw_at).
+__host__ __device__ inline uint32_t wavefront_pre(uint32_t seed, uint32_t dim) {
   uint32_t h0 = dim, h1 = seed;
   tea(h0, h1, 4);
-  uint32_t v0 = lane, v1 = h0 ^ h1;
+  return h0 ^ h1;
+}
+
+// the draw of lane `lane` from its counter's pre-hash
+__host__ __device__ inline float wavefront_draw_pre(uint32_t pre, uint32_t lane) {
+  uint32_t v0 = lane, v1 = pre;
   tea(v0, v1, 8);
   return unit_float(v0);
+}
+
+__host__ __device__ inline float wavefront_draw(uint32_t seed, uint32_t dim,
+                                                uint32_t lane) {
+  return wavefront_draw_pre(wavefront_pre(seed, dim), lane);
+}
+
+// wavefront_draw with the pre-hashes of the counters below n_pre read from
+// `pre` (pre[d] = wavefront_pre(seed, d)), the others hashed here
+__host__ __device__ inline float wavefront_draw_at(const uint32_t* pre, uint32_t n_pre,
+                                                   uint32_t seed, uint32_t dim,
+                                                   uint32_t lane) {
+  return wavefront_draw_pre(dim < n_pre ? pre[dim] : wavefront_pre(seed, dim), lane);
 }
 
 }  // namespace uivr

@@ -18,11 +18,13 @@ The CUDA sources live in ``csrc/``:
                           K-candidate batches (K7)
 - ``volpath_adjoint.cuh`` the adjoint hooks: REPLAY walk, PRB and
                           transmittance cotangents, DRT reservoir (K4, K5)
-- ``volpath_drt.cuh``     the delayed DRT term's lanes
+- ``volpath_drt.cuh``     the delayed DRT term's lanes and tasks: the walk
+                          (draws from a table of pre-hashes), the NEE, the
+                          phase sampling, the scatter
 - ``persistent.cuh``      the persistent scheduler of the walking kernels
-                          (primal, K7 primal, adjoint, the DRT term's NEE):
-                          lanes take rays from a work counter and a new one
-                          as soon as theirs ends
+                          (primal, K7 primal, adjoint, the DRT term's walk
+                          and NEE): lanes take rays from a work counter and
+                          a new one as soon as theirs ends
 - ``volpath_primal.cu``, ``volpath_adjoint.cu``, ``volpath_drt.cu``: the
   ``__global__`` kernels and ``extern "C"`` launchers, one library each
 
@@ -71,7 +73,7 @@ LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "subcell_classification": 0, "deferred_nee": 0, "k_candidate": 0,
             "volpath_primal_direct": 0, "volpath_primal_state_direct": 0,
             "volpath_primal_k_direct": 0, "volpath_adjoint_direct": 0,
-            "volpath_drt_nee_direct": 0}
+            "volpath_drt_walk_direct": 0, "volpath_drt_nee_direct": 0}
 # K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
 # candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
 # events, of which classified, classified SHADOW events, sigma fetches
@@ -198,9 +200,9 @@ class DrtParams(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in (
             "res_o", "res_d_l", "res_d_w", "res_maxt", "res_depth",
             "res_active", "adjoint", "t_sel", "wsum", "found", "trips_a", "p",
-            "active", "nee", "trips_b", "ps_active", "ps_depth", "ps_d_l",
-            "ps_d_w", "ps_maxt", "ps_last_pdf", "rec_L", "g_sigma",
-            "g_albedo", "counts")]
+            "active", "sel_sig", "sel_alb", "nee", "trips_b", "ps_active",
+            "ps_depth", "ps_d_l", "ps_d_w", "ps_maxt", "ps_last_pdf", "rec_L",
+            "g_sigma", "g_albedo", "counts")]
         + [("drt_seed", ctypes.c_uint32)])
 
 
@@ -215,7 +217,7 @@ _LAUNCHERS = {
                "volpath_primal_k_direct_launch": [ctypes.c_int], "tea_launch": None},
     "adjoint": {"volpath_adjoint_launch": _PERSISTENT,
                 "volpath_adjoint_direct_launch": []},
-    "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]},
+    "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int] + _PERSISTENT},
 }
 _SIZES = {"primal": ("primal_params_size", PrimalParams),
           "adjoint": ("adj_params_size", AdjParams),
@@ -605,8 +607,8 @@ def drt_params(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
 
     out = {"t_sel": f(n), "wsum": f(n), "found": f(n, dtype=torch.bool),
            "trips_a": f(n, dtype=torch.int32), "p": f(n, 3),
-           "active": f(n, dtype=torch.bool), "nee": f(n, 3),
-           "trips_b": f(n, dtype=torch.int32)}
+           "active": f(n, dtype=torch.bool), "sel_sig": f(n), "sel_alb": f(n, 3),
+           "nee": f(n, 3), "trips_b": f(n, dtype=torch.int32)}
     ps = PathState(active=f(n, dtype=torch.bool), depth=f(n, dtype=torch.int32),
                    o_l=out["p"], d_l=f(n, 3), d_w=f(n, 3), maxt=f(n),
                    last_pdf=f(n))
@@ -638,12 +640,17 @@ def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
                         return_stats: bool = False, direct: bool = False):
     """The delayed DRT term (``volpath_flat._drt_backward_flat``), adding
     into ``acc``.  On ``cuda`` tensors it runs the ``volpath_drt`` kernels
-    (walk, NEE, phase, scatter) around ``volpath_primal_state_kernel``;
-    the wavefront counter's maxima stay on the device.  The NEE kernel is
-    persistent; ``direct`` launches the one-thread-per-vertex NEE kernel
-    that it replaced instead (for comparison).  ``return_stats`` returns
-    the twin's stats too (``k_a`` and ``k_b`` read back from the device),
-    with the per-lane walk lengths ``trips_a`` and ``trips_b``."""
+    (the walk and the NEE persistent, the phase sampling) and the
+    recursive primal from the path state (``volpath_primal_state``), then
+    the scatter from the sigma and albedo the walk kept; the wavefront
+    counter's maxima stay on the device.  ``direct`` launches the
+    one-thread-per-vertex walk and NEE kernels that the persistent ones
+    replaced instead (for comparison).  ``return_stats`` returns the twin's
+    stats too (``k_a`` and ``k_b`` read back from the device), with the walk's
+    per-lane outputs (``trips_a``, ``p``, ``sel_sig``, ``sel_alb``), the
+    NEE's ``trips_b``, the recursive primal's stats and, from the
+    persistent walk, ``walk_util`` (its per-warp counters,
+    :data:`UTIL_COUNTERS`)."""
     if not res.o_l.is_cuda:
         return volpath_flat._drt_backward_flat(cfg, scene, seed, res, adjoint, acc,
                                                return_stats, deferred=True)
@@ -652,11 +659,16 @@ def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
     lib = _load("drt")
     mis = int(cfg.use_drt_mis)
 
-    def launch(which, key, counter=None):
+    def launch(which, key, counter=None, util=None):
         _launch(key, lib.volpath_drt_launch, ctypes.byref(D), which, mis, _ptr(counter),
-                _stream(dev))
+                _ptr(util), _stream(dev))
 
-    launch(0, "volpath_drt_walk")
+    walk_util = None
+    if direct:
+        launch(5, "volpath_drt_walk_direct")
+    else:
+        counter, walk_util = persistent_args(dev, return_stats)
+        launch(0, "volpath_drt_walk", counter, walk_util)
     if cfg.use_nee:
         if direct:
             launch(4, "volpath_drt_nee_direct")
@@ -671,10 +683,13 @@ def drt_backward_kernel(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
     if not return_stats:
         return acc
     k_a, k_b = counts.tolist()
-    return acc, {"t_sel": out["t_sel"], "wsum": out["wsum"], "found": out["found"],
-                 "k_a": k_a, "k_b": k_b, "nee": out["nee"], "path_state": ps,
-                 "rec_L": rec[0], "rec_stats": rec[2], "trips_a": out["trips_a"],
-                 "trips_b": out["trips_b"]}
+    stats = {k: out[k] for k in ("t_sel", "wsum", "found", "nee", "trips_a", "trips_b", "p",
+                                 "sel_sig", "sel_alb")}
+    stats.update({"k_a": k_a, "k_b": k_b, "path_state": ps, "rec_L": rec[0],
+                  "rec_stats": rec[2]})
+    if walk_util is not None:
+        stats["walk_util"] = walk_util
+    return acc, stats
 
 
 def sample_adjoint_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
