@@ -22,7 +22,8 @@ so nothing is timed meanwhile):
 
 1. device: the card (``nvidia-smi`` name and power limit on a line of its
    own), torch and CUDA versions, and the kernels' nvcc builds (one nvcc
-   per source, started together) with ptxas' registers and spills; with
+   per source, started together, with the ``--fmad=true`` primal and the
+   scalar-atomic NeRF variants) with ptxas' registers and spills; with
    ``--sweep`` also the variants of the persistent kernels
    (PERSIST_VARIANTS: the minimum-blocks bound of ``__launch_bounds__`` at
    3 to 6 beside the package's own, PACKAGE_MIN_BLOCKS).
@@ -132,12 +133,28 @@ so nothing is timed meanwhile):
    twin runs in a worker process beside the other two (``submit_twin``),
    and every twin runs under ``torch.inference_mode``
    (``twins_without_autograd``): the same ops, less host time per op.
-9. cli: ``uivr_tpu_torch.cli.reproduce`` on tiny-cube (20 iterations at
-   batch 557); metrics.jsonl must hold losses and the final checkpoint
-   must exist.  fd: ``uivr_tpu_torch.cli.fd`` on tiny-cube (spp 1024, res
-   16, all three grids) under ``volpathsimple-drt`` and
+9. cli: ``uivr_tpu_torch.cli.reproduce`` on tiny-cube with its default
+   stages, ``nerf`` then ``volpathsimple-drt`` (20 iterations at batch 557
+   each); each stage's metrics.jsonl must hold losses and its final
+   checkpoint must exist.  fd: ``uivr_tpu_torch.cli.fd`` on tiny-cube (spp
+   1024, res 16, all three grids) under ``volpathsimple-drt`` and
    ``volpathsimple-basic``, K6 on and off: kernels only, no twin, the same
-   FD values and adjoint gradients (relative L1 <= 1e-4).
+   FD values and adjoint gradients (relative L1 <= 1e-4); under ``nerf``
+   (sigma_t and emission): the NeRF kernels only, correlation >= 0.9.
+9a. nerf: the NeRF bootstrap stage of janga-smoke at the reference's width
+   (batch 32,768, spp 4, primal factor 1: 131,072 rays a pass, 128 queries
+   a ray) on the train phase's references (``phase_nerf``): a step from the
+   ground truth, whose ``nerf_primal`` L (relative max abs error <= 1e-5)
+   and ``nerf_adjoint`` gradients (relative L1 <= 1e-5) are held against
+   the plain version on the step's own inputs, and one from the constant
+   start, with their parts (CUDA events: forward, replay, adjoint, Adam,
+   projection); the stage through ``cli.reproduce._run_stages`` cut to 25
+   iterations (8^3 to 128^3 at 1, 4, 9, 16) with every counter set to 0
+   just before (both kernels launched, no plain call on the card, finite
+   losses, the final checkpoint); one full-width ``volpathsimple-drt`` step
+   of janga-smoke-from-nerf warm-started from it through ``_run_stages``;
+   ``cli.render --integrator nerf --spp 64 --checkpoint`` of it; both
+   kernels alone.
 9b. xml: the XML path.  ``write_standins`` writes stand-in assets of the
    shapes janga-smoke's and dust-devil's XML files and scene vars name
    (plumes of 136x264x136 and 256^3 voxels, albedo 128x256x128 noise and a
@@ -178,8 +195,10 @@ so nothing is timed meanwhile):
    that chunk; K7's row (``k_candidate_batching``) the K=4 kernel's time
    and bound on janga's chunk with the other K's times, its launches from
    k7_train; the one-ray-per-thread K7 and DRT walk and NEE kernels as
-   ``comparison_only`` rows (0 launches on the main path).  With
-   UIVR_KCAND unset the main path must launch no K7 kernel.
+   ``comparison_only`` rows (0 launches on the main path); the NeRF rows
+   (``nerf_primal``, ``nerf_adjoint``: launches in the 25-iteration stage,
+   times in its truth step).  With UIVR_KCAND unset the main path must
+   launch no K7 kernel.
    ``launches_per_train_step`` is the counters' growth over the main
    run's first recorded step.
 11. the last line: {"ok": true, "device": {...}}.
@@ -227,6 +246,15 @@ FLOP_PER_STEP = 120       # float operations of a tracking event, its draws apar
 # the FMA pipe; cuobjdump -sass of tea(v0, v1, 8))
 TEA_OPS_PER_ROUND = 6
 LANE_DRAW_ROUNDS = 5      # a walking kernel's per-lane draw (core/rng._DRAW_ROUNDS)
+# float operations of one step of the NeRF march (csrc/nerf.cuh), counted
+# from its source: the point (9), the corners and weights (43), the
+# 4-channel trilinear fma chain (60, an fma as two), scale, activation and
+# exp (6), compositing (11); the adjoint's step replaces the compositing
+# with the replay's update and the two cotangents (36) and adds 8 corners
+# x 4 products and adds (64)
+NERF_FLOP_PER_STEP = {"nerf_primal": 129, "nerf_adjoint": 218}
+NERF_FLOP_PER_RAY = 40    # the ray's transform, slab test, entry and step
+NERF_KERNELS = ("nerf_primal", "nerf_adjoint")
 
 
 T0 = time.perf_counter()
@@ -418,7 +446,8 @@ class StepRecorder:
     (``volpath_step.TIMINGS``); the launch counters' growth over the step
     (``counts``); the adjoint walk's inputs and outputs; the delayed DRT
     term's inputs; the gradients the backward returns; the first K7 forward
-    chunk's inputs and outputs (``forward``)."""
+    chunk's inputs and outputs (``forward``); CUDA events around the
+    step's Adam update and projection (``ops``)."""
 
     def __init__(self, vs, loop):
         self.vs, self.loop = vs, loop
@@ -466,6 +495,15 @@ class StepRecorder:
                 return run
             return build
 
+        def in_step(fn):
+            def run(*a, **k):
+                s = event()
+                out = fn(*a, **k)
+                if self.steps:
+                    self.steps[-1].setdefault("ops", []).append((fn.__name__, s, event()))
+                return out
+            return run
+
         def adjoint_walk(fn):
             def run(cfg, scene, o, d, seed, dL, state_in):
                 out = fn(cfg, scene, o, d, seed, dL, state_in)
@@ -499,6 +537,8 @@ class StepRecorder:
         for mod, name, wrap in ((self.loop, "_make_step", make_step),
                                 (self.loop, "sample_batch_pixels", timed),
                                 (self.loop, "gather_ref_values", timed),
+                                (self.loop, "adam_step", in_step),
+                                (self.loop, "enforce_valid_params", in_step),
                                 (vs, "adjoint_walk_kernel", adjoint_walk),
                                 (vs, "drt_backward_kernel", drt),
                                 (vs, "sample_adjoint_kernel", grads),
@@ -1321,11 +1361,35 @@ def phase_fd(card, vs, out_dir):
         if not ok:
             raise RuntimeError(f"fd {integ}: the FD entry point failed its checks")
         out[integ] = rec
+    # the NeRF stage's gradients against FD (no K6: the march reads no table)
+    from uivr_tpu_torch.integrators import nerf
+    d = out_dir / "fd" / "nerf"
+    for k in vs.LAUNCHES:
+        vs.LAUNCHES[k] = 0
+    for k in nerf.CALLS:
+        nerf.CALLS[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    summary = cli_fd.main(["--scene", "tiny-cube", "--integrator", "nerf", "--spp", "1024",
+                           "--res", "16", "--keys", "sigma_t", "emission", "--out", str(d)])
+    torch.cuda.synchronize()
+    rec = {"phase": "fd", "scene": "tiny-cube", "integrator": "nerf", "spp": 1024, "res": 16,
+           "keys": ["sigma_t", "emission"], "summary": summary,
+           "seconds": time.perf_counter() - t0,
+           "launches": {k: v for k, v in vs.LAUNCHES.items() if v},
+           "plain_calls": dict(nerf.CALLS), "card": card}
+    emit(rec)
+    if not (rec["launches"].get("nerf_primal", 0) > 0 and rec["launches"].get("nerf_adjoint", 0) > 0
+            and not any(rec["plain_calls"].values())
+            and all(summary[k]["corr"] >= 0.9 for k in ("sigma_t", "emission"))):
+        raise RuntimeError(f"fd nerf: the FD entry point failed its checks: {rec}")
+    out["nerf"] = rec
     return out
 
 
 def phase_cli(card, out_dir):
-    """The reproduce CLI on tiny-cube: 20 iterations at batch 557."""
+    """The reproduce CLI on tiny-cube with its default stages, ``nerf`` then
+    ``volpathsimple-drt`` (20 iterations at batch 557 each)."""
     import json as json_
     from uivr_tpu_torch.cli import reproduce
     outputs = out_dir / "cli"
@@ -1333,20 +1397,342 @@ def phase_cli(card, out_dir):
         import shutil
         shutil.rmtree(outputs)
     t0 = time.perf_counter()
-    reproduce.main(["--config", "tiny-cube", "--integrator", "volpathsimple-drt",
-                    "--scale", "0.034", "--ref-spp", "16", "--outputs", str(outputs)])
+    reproduce.main(["--config", "tiny-cube", "--scale", "0.034", "--ref-spp", "16",
+                    "--outputs", str(outputs)])
     dt = time.perf_counter() - t0
-    run = outputs / "tiny-cube" / "volpathsimple-drt"
-    with open(run / "metrics.jsonl") as f:
-        recs = [json_.loads(ln) for ln in f]
-    losses_ = [r["loss"] for r in recs if "loss" in r]
-    final = run / "params" / "final-medium1_sigma_t.vol"
-    rec = {"phase": "cli", "command": "reproduce --config tiny-cube --integrator "
-           "volpathsimple-drt --scale 0.034 --ref-spp 16", "seconds": dt,
-           "losses": losses_, "final_checkpoint": final.exists(), "card": card}
+    stages = {}
+    for stage in ("nerf", "volpathsimple-drt"):
+        run = outputs / "tiny-cube" / stage
+        with open(run / "metrics.jsonl") as f:
+            recs = [json_.loads(ln) for ln in f]
+        stages[stage] = {"losses": [r["loss"] for r in recs if "loss" in r],
+                         "final_checkpoint": (run / "params" /
+                                              "final-medium1_sigma_t.vol").exists()}
+    rec = {"phase": "cli", "command": "reproduce --config tiny-cube --scale 0.034 "
+           "--ref-spp 16", "seconds": dt, "stages": stages, "card": card}
     emit(rec)
-    if not (losses_ and all(math.isfinite(x) for x in losses_) and final.exists()):
-        raise RuntimeError("cli: no losses or no final checkpoint")
+    if not all(s_["losses"] and all(math.isfinite(x) for x in s_["losses"])
+               and s_["final_checkpoint"] for s_ in stages.values()):
+        raise RuntimeError("cli: a stage has no losses or no final checkpoint")
+
+
+class NerfCalls:
+    """Records the calls of the NeRF wrappers (``ops/nerf_step``) within:
+    each call's kind, its grid shape and, with ``keep``, its inputs and
+    outputs."""
+
+    def __init__(self, nerf_step, keep=False):
+        self.mod, self.keep, self.calls, self.saved = nerf_step, keep, [], {}
+
+    def __enter__(self):
+        for name in ("sample_primal_kernel", "sample_adjoint_kernel"):
+            fn = getattr(self.mod, name)
+
+            def run(cfg, scene, o, d, seed, *rest, _fn=fn, _name=name):
+                out = _fn(cfg, scene, o, d, seed, *rest)
+                rec = {"kind": _name, "grid": tuple(scene.medium.params.sigma_t.shape[:3])}
+                if self.keep:
+                    rec.update(cfg=cfg, scene=scene, o=o, d=d, seed=seed, rest=rest, out=out)
+                self.calls.append(rec)
+                return out
+            self.saved[name] = fn
+            setattr(self.mod, name, run)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.mod, name, fn)
+
+
+def nerf_step_parts(rec):
+    """A recorded NeRF step's parts (ms), consecutive spans of the device's
+    timeline between its CUDA events."""
+    def ms(a, b):
+        return a.elapsed_time(b)
+    L = rec["launches"]
+    prim = [x for x in L if x[0] == "nerf_primal"]
+    fwd, replay = prim[0], prim[-1]
+    adj = next(x for x in L if x[0] == "nerf_adjoint")
+    ops = {name: (s, e) for name, s, e in rec["ops"]}
+    adam, proj = ops["adam_step"], ops["enforce_valid_params"]
+    return {"pixels": sum(ms(s, e) for _, s, e in rec["pre"]),
+            "forward_rays_grid": ms(rec["start"], fwd[1]), "forward": ms(fwd[1], fwd[2]),
+            "loss_adjoint_rays": ms(fwd[2], replay[1]), "replay": ms(replay[1], replay[2]),
+            "adjoint_grids": ms(replay[2], adj[1]), "adjoint": ms(adj[1], adj[2]),
+            "gradients": ms(adj[2], adam[0]), "adam": ms(*adam),
+            "adam_to_projection": ms(adam[1], proj[0]), "projection": ms(*proj),
+            "rest": ms(proj[1], rec["end"]), "step": ms(rec["start"], rec["end"])}
+
+
+def nerf_work(scene, o, d, steps):
+    """(active rays, bytes the primal and the adjoint must move, their
+    float and integer operations, bytes their steps fetch) for rays o, d."""
+    from uivr_tpu_torch.scene.medium import intersect_bbox
+    m, em = scene.medium, scene.emitter
+    n = o.shape[0]
+    tn, tf, _, _, _ = intersect_bbox(m, o, d)
+    active = int((tf > tn).sum())
+    grid = m.params.sigma_t[..., 0].numel() * 16
+    env = em.data.numel() * 4 if hasattr(em, "data") else 0
+    march = active * steps
+    ints = wavefront_ops(n, n)
+    return {"active": active,
+            "nerf_primal": dict(bytes=24 * n + grid + env + 13 * n, ints=ints,
+                                flops=NERF_FLOP_PER_STEP["nerf_primal"] * march
+                                + NERF_FLOP_PER_RAY * n,
+                                fetch=march * 128 + 37 * n),
+            "nerf_adjoint": dict(bytes=48 * n + 2 * grid, ints=ints,
+                                 flops=NERF_FLOP_PER_STEP["nerf_adjoint"] * march
+                                 + NERF_FLOP_PER_RAY * n,
+                                 fetch=march * 256 + 48 * n)}
+
+
+def nerf_kernel_ms(vs, nerf_step, cfg, scene, o, d, seed, dL, L, reps=10):
+    """CUDA-event ms of the NeRF kernels alone (their launchers, no
+    counting), on one grid made beforehand: (primal ms, adjoint ms)."""
+    import ctypes
+
+    import torch
+    lib = vs._load("nerf")
+    grid = nerf_step.nerf_grid(scene.medium)
+    Lk = torch.empty_like(L)
+    valid = torch.empty(L.shape[0], dtype=torch.bool, device=L.device)
+    g4 = torch.zeros_like(grid)
+    p = nerf_step.nerf_params(cfg, scene, o, d, seed, grid)
+    p.P.L, p.valid, p.L_in, p.dL, p.g_grid = (Lk.data_ptr(), valid.data_ptr(), L.data_ptr(),
+                                              dL.data_ptr(), g4.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(fn):
+        if fn(ctypes.byref(p), stream):
+            raise RuntimeError("a NeRF kernel launch failed")
+    return (cuda_ms(lambda: launch(lib.nerf_primal_launch), reps),
+            cuda_ms(lambda: launch(lib.nerf_adjoint_launch), reps))
+
+
+def phase_nerf(card, vs, janga, out_dir):
+    """The NeRF bootstrap stage of janga-smoke at the reference's width
+    (``_opt_for("janga-smoke", "nerf", 1.0)``: batch 32,768, spp 4, primal
+    factor 1, lr 1e-2: 131,072 forward, replay and adjoint rays a step, 128
+    queries a ray), on the references the train phase rendered:
+
+    1. a step from the ground-truth grids (128^3) and one from the constant
+       start (its second), recorded (``StepRecorder``, ``NerfCalls``): the
+       kernels' forward L and adjoint gradients against the plain version
+       on the truth step's own inputs, the step's parts;
+    2. the stage through ``cli.reproduce._run_stages`` with n_iter cut to
+       25 (upsampling at 1, 4, 9, 16: 8^3 to 128^3), every counter set to 0
+       just before: both kernels launched, no plain call, no volpath
+       kernel, finite losses, a final checkpoint at 128^3;
+    3. one full-width ``volpathsimple-drt`` step of janga-smoke-from-nerf
+       through ``_run_stages``, warm-started from that checkpoint;
+    4. ``cli.render --integrator nerf --spp 64 --checkpoint`` of it;
+    5. both kernels timed alone (CUDA events, their launchers) and in the
+       truth step, the adjoint with one float4 atomic a corner against the
+       build with four scalar ones in turns, plain times, bounds.
+    Returns the kernels line's rows."""
+    import argparse
+    import shutil
+
+    import torch
+    from uivr_tpu_torch.cli import render as cli_render
+    from uivr_tpu_torch.cli import reproduce
+    from uivr_tpu_torch.config import get_int_config, get_scene_config
+    from uivr_tpu_torch.core.rng import make_sampler
+    from uivr_tpu_torch.integrators import nerf
+    from uivr_tpu_torch.ops import nerf_step
+    from uivr_tpu_torch.opt import OptimizationConfig, load_checkpoint, load_references, loop
+    preset, b, _ = janga
+    dev = b.params.sigma_t.device
+    cfg = get_int_config("nerf").create(max_depth=preset.max_depth)
+    stage = reproduce._opt_for("janga-smoke", "nerf", 1.0)
+    refs = load_references(str(out_dir / "janga-smoke" / "references"), b,
+                           sensors=list(b.sensors) if b.sensors else None)
+    root = out_dir / "nerf"
+    if root.exists():
+        shutil.rmtree(root)
+    width = dict(spp=stage.spp, lr=stage.lr, primal_spp_factor=stage.primal_spp_factor,
+                 batch_size=stage.batch_size, upsample=None, preview_stride=0,
+                 checkpoint_stride=0, checkpoint_initial=False, checkpoint_final=False,
+                 render_initial=False, render_final=False)
+
+    def counters_zero():
+        for k in vs.LAUNCHES:
+            vs.LAUNCHES[k] = 0
+        for k in nerf.CALLS:
+            nerf.CALLS[k] = 0
+
+    # ---- 1. truth and start steps
+    steps = {}
+    for tag, start, n_iter in (("truth", b.params, 1), ("start", None, 2)):
+        opt = OptimizationConfig(name=f"janga-smoke/nerf-{tag}", n_iter=n_iter, **width)
+        with StepRecorder(vs, loop) as r, NerfCalls(nerf_step, keep=tag == "truth") as calls:
+            loop.run_optimization(str(root / tag), opt, b, cfg, ref_images=refs,
+                                  start_params=start, resume=False, verbose=False)
+        steps[tag] = (r.steps[-1], calls.calls)
+    rec, calls = steps["truth"]
+    fwd, replay, adj = calls
+    if [c["kind"] for c in calls] != ["sample_primal_kernel"] * 2 + ["sample_adjoint_kernel"]:
+        raise RuntimeError(f"nerf truth step: unexpected calls {[c['kind'] for c in calls]}")
+    sc, o, d, seed = fwd["scene"], fwd["o"], fwd["d"], fwd["seed"]
+    n = o.shape[0]
+    L = fwd["out"][0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Lp, _, _ = nerf.sample_primal(cfg, sc, o, d, make_sampler(seed, n_lanes=n, device=dev))
+    torch.cuda.synchronize()
+    p_plain_ms = (time.perf_counter() - t0) * 1e3
+    ao, ad, aseed = adj["o"], adj["d"], adj["seed"]
+    dL, L_in = adj["rest"]
+    g = adj["out"]
+    t0 = time.perf_counter()
+    gp, _ = nerf.sample_adjoint(cfg, adj["scene"], ao, ad,
+                                make_sampler(aseed, n_lanes=ao.shape[0], device=dev), dL, L_in)
+    torch.cuda.synchronize()
+    a_plain_ms = (time.perf_counter() - t0) * 1e3
+    p_err = (L - Lp).abs().max().item()
+    p_rel = p_err / max(Lp.abs().max().item(), 1e-30)
+    a_rel = {k: rel_l1(getattr(g, k), getattr(gp, k)) for k in ("sigma_t", "emission")}
+    parts = {t: nerf_step_parts(s_) for t, (s_, _) in steps.items()}
+    check = {"rays": n, "adjoint_rays": ao.shape[0],
+             "primal_max_abs_err": p_err, "primal_rel_max_abs_err": p_rel,
+             "primal_bit_equal_lanes": float((L == Lp).all(dim=1).float().mean()),
+             "adjoint_rel_l1": a_rel, "albedo_gradient_zero": not g.albedo.any().item(),
+             "plain_ms": {"nerf_primal": p_plain_ms, "nerf_adjoint": a_plain_ms},
+             "launches_per_step": {k: rec["counts"][k] for k in NERF_KERNELS}}
+    emit({"phase": "nerf_step", "scene": "janga-smoke", "batch": stage.batch_size,
+          "spp": stage.spp, "primal_spp_factor": stage.primal_spp_factor, "lr": stage.lr,
+          "grid": list(b.params.sigma_t.shape), "queries_per_ray": cfg.queries_per_ray,
+          "loss": {t: s_["loss"] for t, (s_, _) in steps.items()},
+          "seconds": {t: s_["seconds"] for t, (s_, _) in steps.items()},
+          "parts_ms": parts, **check, "card": card})
+    if p_rel > 1e-5 or max(a_rel.values()) > 1e-5 or not check["albedo_gradient_zero"] \
+            or check["launches_per_step"] != {"nerf_primal": 2, "nerf_adjoint": 1}:
+        raise RuntimeError(f"nerf truth step: the kernels disagree with the plain version: "
+                           f"{check}")
+
+    # ---- 2. the stage through _run_stages, 25 iterations
+    cut = {"nerf": 25, "volpathsimple-drt": 1}
+    opt_for, run_opt = reproduce._opt_for, reproduce.run_optimization
+    warm = {}
+
+    def args(config, integrator):
+        return argparse.Namespace(config=config, integrator=[integrator],
+                                  outputs=str(root / "stages"), scale=1.0, shadow_rr=0.0,
+                                  scan_stride=10)
+
+    def run_recorded(*a, **k):
+        warm["start_params"] = k.get("start_params")
+        return run_opt(*a, **k)
+    reproduce._opt_for = lambda s_, i_, x_: dataclasses.replace(opt_for(s_, i_, x_),
+                                                                 n_iter=cut[i_])
+    reproduce.run_optimization = run_recorded
+    try:
+        counters_zero()
+        t0 = time.perf_counter()
+        with StepRecorder(vs, loop) as r, NerfCalls(nerf_step) as calls:
+            reproduce._run_stages(args("janga-smoke", "nerf"), preset, b, refs, 64, dev)
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        launches = {k: v for k, v in vs.LAUNCHES.items() if v}
+        plain_calls = dict(nerf.CALLS)
+        run_dir = root / "stages" / "janga-smoke" / "nerf"
+        with open(run_dir / "metrics.jsonl") as f:
+            metrics = [json.loads(ln) for ln in f]
+        losses_ = [m_["loss"] for m_ in metrics if "loss" in m_]
+        # one adjoint call a step; the previews call the primal only
+        it_grids = [c["grid"] for c in calls.calls if c["kind"] == "sample_adjoint_kernel"]
+        first_at = {}
+        for it, shp in enumerate(it_grids):
+            first_at.setdefault(shp, it)
+        final_ck = run_dir / "params" / "final-medium1_sigma_t.vol"
+        final = load_checkpoint(str(run_dir / "params"), "final", device=dev)
+        stage_rec = {"iterations": len(r.steps), "seconds": stage_s, "losses": losses_,
+                     "grid_first_iteration": {"x".join(map(str, k)): v
+                                              for k, v in first_at.items()},
+                     "step_ms": [s_["start"].elapsed_time(s_["end"]) for s_ in r.steps],
+                     "launches": launches, "plain_calls": plain_calls,
+                     "final_grid": list(final.sigma_t.shape)}
+        emit({"phase": "nerf_stage", "scene": "janga-smoke", **stage_rec, "card": card})
+        if not (launches.get("nerf_primal", 0) > 0 and launches.get("nerf_adjoint", 0) > 0
+                and not any(plain_calls.values()) and "volpath_primal" not in launches
+                and len(r.steps) == 25 and losses_ and all(map(math.isfinite, losses_))
+                and final_ck.exists() and tuple(final.sigma_t.shape[:3]) == (128, 128, 128)
+                and sorted(first_at.values()) == [0, 1, 4, 9, 16]):
+            raise RuntimeError(f"nerf stage: checks failed: {stage_rec}")
+        nerf_launches = launches
+
+        # ---- 3. janga-smoke-from-nerf, one volpathsimple-drt step
+        counters_zero()
+        t0 = time.perf_counter()
+        with StepRecorder(vs, loop) as r:
+            reproduce._run_stages(args("janga-smoke-from-nerf", "volpathsimple-drt"),
+                                  get_scene_config("janga-smoke-from-nerf"), b, refs, 64, dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches = {k: v for k, v in vs.LAUNCHES.items() if v}
+        sp = warm.get("start_params")
+        warm_rec = {"seconds": warm_s, "loss": r.steps[0]["loss"] if r.steps else None,
+                    "step_ms": [s_["start"].elapsed_time(s_["end"]) for s_ in r.steps],
+                    "warm_started": sp is not None and all(
+                        torch.equal(getattr(sp, k), getattr(final, k))
+                        for k in ("sigma_t", "albedo", "emission")),
+                    "launches": launches}
+        emit({"phase": "nerf_warm_start", "scene": "janga-smoke-from-nerf", **warm_rec,
+              "card": card})
+        done = root / "stages" / "janga-smoke-from-nerf" / "volpathsimple-drt" / "params" \
+            / "final-medium1_sigma_t.vol"
+        if not (warm_rec["warm_started"] and len(r.steps) == 1 and done.exists()
+                and math.isfinite(warm_rec["loss"])
+                and all(launches.get(k, 0) > 0 for k in TRAIN_KERNELS)
+                and not any(launches.get(k, 0) for k in NERF_KERNELS)):
+            raise RuntimeError(f"janga-smoke-from-nerf: checks failed: {warm_rec}")
+    finally:
+        reproduce._opt_for, reproduce.run_optimization = opt_for, run_opt
+
+    # ---- 4. the render CLI on the stage's checkpoint
+    counters_zero()
+    exr = root / "nerf-s0.exr"
+    img, dt = cli_render.main(["--scene", "janga-smoke", "--integrator", "nerf", "--spp", "64",
+                               "--checkpoint", str(run_dir / "params"), "--out", str(exr)])
+    W, H = b.film_size
+    render_rec = {"rays": W * H * 64, "seconds": dt, "mrays_per_s": W * H * 64 / dt / 1e6,
+                  "image_mean": float(img.mean()),
+                  "launches": {k: v for k, v in vs.LAUNCHES.items() if v},
+                  "plain_calls": dict(nerf.CALLS)}
+    emit({"phase": "nerf_render", "scene": "janga-smoke", "spp": 64, **render_rec, "card": card})
+    if not (render_rec["launches"].get("nerf_primal", 0) > 0 and np.isfinite(img).all()
+            and not any(render_rec["plain_calls"].values())
+            and "volpath_primal" not in render_rec["launches"]):
+        raise RuntimeError(f"nerf render: checks failed: {render_rec}")
+
+    # ---- 5. the kernels alone, bounds
+    ms_p, ms_a = nerf_kernel_ms(vs, nerf_step, cfg, adj["scene"], ao, ad, aseed, dL, L_in)
+    work = {"nerf_primal": nerf_work(sc, o, d, cfg.queries_per_ray),
+            "nerf_adjoint": nerf_work(adj["scene"], ao, ad, cfg.queries_per_ray)}
+    step_ms = {"nerf_primal": parts["truth"]["forward"], "nerf_adjoint": parts["truth"]["adjoint"]}
+    alone = {"nerf_primal": ms_p, "nerf_adjoint": ms_a}
+    errs = {"nerf_primal": p_err, "nerf_adjoint": max(
+        (getattr(g, k) - getattr(gp, k)).abs().max().item() for k in ("sigma_t", "emission"))}
+    rows = []
+    for name, line in (("nerf_primal", 61), ("nerf_adjoint", 95)):
+        w = work[name][name]
+        b_ms, b_by = bound(w["bytes"], w["flops"], w["ints"])
+        rows.append({
+            "name": name, "route": "cuda", "source": "uivr_tpu_torch/ops/csrc/nerf.cu",
+            "replaces": f"uivr_tpu/integrators/nerf.py:{line}", "tpu_kernel": False,
+            "launches": nerf_launches[name], "launches_per_nerf_step": check[
+                "launches_per_step"][name],
+            "max_abs_err": errs[name], "ms": step_ms[name], "ms_alone": alone[name],
+            "plain_ms": check["plain_ms"][name], "bound_ms": b_ms, "bound_by": b_by,
+            "gather_bound_ms": bound(w["fetch"], 0)[0], "fetch_bytes": w["fetch"],
+            "library_ms": None, "active_rays": work[name]["active"],
+            "shape": f"{n} rays x {cfg.queries_per_ray} queries, janga-smoke NeRF truth step, "
+                     f"128^3 grid"})
+    rows[1]["rel_l1"] = a_rel
+    rows[0]["rel_max_abs_err"] = p_rel
+    emit({"phase": "nerf_kernels", "rows": rows, "card": card})
+    return rows
 
 
 def table_bytes(scene):
@@ -2893,10 +3279,12 @@ def main(argv=None):
     dust_check = check_step(card, vs, "dust-devil truth", dust_truth)
     phase_cli(card, out_dir)
     phase_fd(card, vs, out_dir)
+    nerf_rows = phase_nerf(card, vs, janga, out_dir)
     k3b, xml = phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk, more_ab)
     for k in kernels:
         k["launches_per_train_step"] = train["iterations"][0]["launches"].get(k["name"], 0)
     kernels += training_kernels(train, truth, check)
+    kernels += nerf_rows
 
     # ---------------------------------------------------------- 10. kernels
     walking = {"janga-smoke": {"volpath_primal": {"ms_on": k_ms, "ms_off": k_off_ms,

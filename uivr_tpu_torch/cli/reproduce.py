@@ -1,15 +1,17 @@
-"""Reproduction CLI: optimize a registered scene's medium.
+"""Reproduction CLI: the paper's two-stage pipeline on a registered scene.
 
     python -m uivr_tpu_torch.cli.reproduce --config janga-smoke \
-        --integrator volpathsimple-drt --outputs outputs/ --scale 0.1
+        --integrator nerf volpathsimple-drt --outputs outputs/ --scale 0.1
 
-Port of ``uivr_tpu/cli/reproduce.py`` for the volumetric path tracers: the
-reference images are rendered once per scene with the scene's reference
-integrator, then every requested stage trains against them.  ``--scale``
-shrinks iteration counts and the batch for smoke runs.  Completed stages
-(final checkpoint present) are skipped.  Runs on the GPU unless
-``--device cpu`` selects the plain PyTorch path.  Not ported yet: the
-``nerf`` stage, ``--mesh`` (data parallel) and ``--retries``.
+Port of ``uivr_tpu/cli/reproduce.py``: the reference images are rendered
+once per scene with the scene's reference integrator, then every requested
+stage trains against them, by default the fast ``nerf`` bootstrap stage and
+then ``volpathsimple-drt``; a ``*-from-nerf`` scene starts from the final
+checkpoint of its base scene's ``nerf`` stage.  ``--scale`` shrinks
+iteration counts and the batch for smoke runs.  Completed stages (final
+checkpoint present) are skipped.  Runs on the GPU unless ``--device cpu``
+selects the plain PyTorch path.  Not ported yet: ``--mesh`` (data parallel)
+and ``--retries``.
 """
 from __future__ import annotations
 
@@ -64,7 +66,7 @@ def _opt_for(scene_name: str, int_name: str, scale: float) -> OptimizationConfig
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--config", default="tiny-cube", choices=list_scene_configs())
-    ap.add_argument("--integrator", nargs="+", default=["volpathsimple-drt"],
+    ap.add_argument("--integrator", nargs="+", default=["nerf", "volpathsimple-drt"],
                     choices=list_int_configs())
     ap.add_argument("--outputs", default="outputs")
     ap.add_argument("--scale", type=float, default=1.0,
@@ -89,8 +91,6 @@ def main(argv=None):
                     help="torch device (default cuda, which must exist)")
     args = ap.parse_args(argv)
 
-    if "nerf" in args.integrator:
-        raise NotImplementedError("nerf: later slice")
     if args.mesh > 0:
         raise NotImplementedError("--mesh (data-parallel training): later slice")
     if args.retries > 0:
@@ -152,7 +152,7 @@ def _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device):
         opt.lr_factors = dict(scene_preset.param_lr_factors)
         opt.scan_stride = args.scan_stride
         int_cfg = preset.create(max_depth=scene_preset.max_depth)
-        if args.shadow_rr > 0:
+        if args.shadow_rr > 0 and hasattr(int_cfg, "shadow_rr"):
             int_cfg = replace(int_cfg, shadow_rr=args.shadow_rr)
         print(f"[run] scene={args.config} integrator={int_name} "
               f"iters={opt.n_iter} batch={opt.batch_size}")

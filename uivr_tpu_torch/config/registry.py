@@ -12,8 +12,9 @@ import os
 import xml.etree.ElementTree as ET
 from copy import deepcopy
 from dataclasses import dataclass, field, replace
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
+from ..integrators.nerf import NerfConfig
 from ..integrators.volpathsimple import VolpathConfig
 from .scenes import SceneBundle, cube_test_scene, smoke_scene
 from .xml_scene import load_xml_scene, xml_variables
@@ -31,9 +32,9 @@ class IntegratorPreset:
     fd_epsilon: Optional[float] = None
     fd_spp_multiplier: int = 16
 
-    def create(self, max_depth: int) -> VolpathConfig:
+    def create(self, max_depth: int) -> Union[NerfConfig, VolpathConfig]:
         if self.kind == "nerf":
-            raise NotImplementedError("the nerf integrator is not ported yet")
+            return NerfConfig(**self.params)
         # rr_depth = max_depth + 1000 disables Russian roulette
         return VolpathConfig(max_depth=max_depth, rr_depth=max_depth + 1000,
                              **self.params)

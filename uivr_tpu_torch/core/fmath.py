@@ -10,9 +10,9 @@ compute the same bits on the card, and so they stay close to the reference:
 - ``ray_point``: ``o + t * d`` for (n, 3) rays, fused per component as
   XLA's CPU build vectorises that expression at each site (measured: x and
   y fused in the tracking step, z alone at the medium entry).
-- ``sqrt``, ``sin``, ``cos``, ``log1p``, ``atan2``, ``acos``: evaluated in
-  float64 and rounded once, i.e. the correctly rounded float32 value bar
-  rare ties.  PyTorch's own float32 versions differ between CPU and CUDA
+- ``sqrt``, ``sin``, ``cos``, ``log1p``, ``exp``, ``atan2``, ``acos``:
+  evaluated in float64 and rounded once, i.e. the correctly rounded float32
+  value bar rare ties.  PyTorch's own float32 versions differ between CPU and CUDA
   builds; the kernel evaluates the same float64 functions.
 
 The float64 product of two float32 values is exact, so the emulated FMA
@@ -55,6 +55,10 @@ def cos(x: torch.Tensor) -> torch.Tensor:
 
 def log1p(x: torch.Tensor) -> torch.Tensor:
     return torch.log1p(_f64(x)).to(torch.float32)
+
+
+def exp(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(_f64(x)).to(torch.float32)
 
 
 def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -104,6 +104,7 @@ __host__ __device__ inline float sin_r(float x) { return (float)sin((double)x); 
 __host__ __device__ inline float cos_r(float x) { return (float)cos((double)x); }
 __host__ __device__ inline float sqrt_r(float x) { return (float)sqrt((double)x); }
 __host__ __device__ inline float log1p_r(float x) { return (float)log1p((double)x); }
+__host__ __device__ inline float exp_r(float x) { return (float)exp((double)x); }
 __host__ __device__ inline float atan2_r(float y, float x) { return (float)atan2((double)y, (double)x); }
 __host__ __device__ inline float acos_r(float x) { return (float)acos((double)x); }
 

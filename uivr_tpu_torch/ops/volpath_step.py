@@ -25,8 +25,11 @@ The CUDA sources live in ``csrc/``:
                           (primal, K7 primal, adjoint, the DRT term's walk
                           and NEE): lanes take rays from a work counter and
                           a new one as soon as theirs ends
-- ``volpath_primal.cu``, ``volpath_adjoint.cu``, ``volpath_drt.cu``: the
-  ``__global__`` kernels and ``extern "C"`` launchers, one library each
+- ``nerf.cuh``            one ray of the NeRF stage's march, primal and
+                          adjoint (wrapped by ``ops/nerf_step.py``)
+- ``volpath_primal.cu``, ``volpath_adjoint.cu``, ``volpath_drt.cu``,
+  ``nerf.cu``: the ``__global__`` kernels and ``extern "C"`` launchers, one
+  library each
 
 Each ``.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 under ``build/uivr_tpu_torch/`` (keyed by a hash of the sources and flags);
@@ -73,7 +76,8 @@ LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "subcell_classification": 0, "deferred_nee": 0, "k_candidate": 0,
             "volpath_primal_direct": 0, "volpath_primal_state_direct": 0,
             "volpath_primal_k_direct": 0, "volpath_adjoint_direct": 0,
-            "volpath_drt_walk_direct": 0, "volpath_drt_nee_direct": 0}
+            "volpath_drt_walk_direct": 0, "volpath_drt_nee_direct": 0,
+            "nerf_primal": 0, "nerf_adjoint": 0}
 # K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
 # candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
 # events, of which classified, classified SHADOW events, sigma fetches
@@ -92,10 +96,10 @@ TIMINGS = None
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 HEADERS = ("rng.cuh", "volpath_lane.cuh", "volpath_adjoint.cuh",
-           "volpath_drt.cuh", "persistent.cuh")
+           "volpath_drt.cuh", "persistent.cuh", "nerf.cuh")
 # library -> its CUDA source
 LIBS = {"primal": "volpath_primal.cu", "adjoint": "volpath_adjoint.cu",
-        "drt": "volpath_drt.cu"}
+        "drt": "volpath_drt.cu", "nerf": "nerf.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -206,6 +210,15 @@ class DrtParams(ctypes.Structure):
         + [("drt_seed", ctypes.c_uint32)])
 
 
+class NerfParams(ctypes.Structure):
+    """Mirror of ``uivr::NerfParams`` in ``csrc/nerf.cuh``."""
+    _fields_ = (
+        [("P", PrimalParams)]
+        + [(f, ctypes.c_void_p) for f in ("valid", "L_in", "dL", "g_grid")]
+        + [(f, ctypes.c_int32) for f in (
+            "steps", "jitter", "relu", "emission_scaled", "hide_emitters")])
+
+
 # launcher name -> extra argument types after the params pointer (before
 # the stream); the persistent launchers take the work counter and the
 # utilization counters
@@ -218,10 +231,12 @@ _LAUNCHERS = {
     "adjoint": {"volpath_adjoint_launch": _PERSISTENT,
                 "volpath_adjoint_direct_launch": []},
     "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int] + _PERSISTENT},
+    "nerf": {"nerf_primal_launch": [], "nerf_adjoint_launch": []},
 }
 _SIZES = {"primal": ("primal_params_size", PrimalParams),
           "adjoint": ("adj_params_size", AdjParams),
-          "drt": ("drt_params_size", DrtParams)}
+          "drt": ("drt_params_size", DrtParams),
+          "nerf": ("nerf_params_size", NerfParams)}
 
 
 def bind(lib, key: str):
@@ -301,6 +316,40 @@ def _need(t: torch.Tensor, name: str, device, dtype=torch.float32,
     return t.data_ptr()
 
 
+def emitter_params(p: PrimalParams, em, dev, deferred: bool = True) -> None:
+    """Fill the emitter's fields of ``p``, checking its tensors; with
+    ``deferred`` an envmap's coarse proxy (K3b) goes in when it has one.
+    The values come from the emitter's host copies: nothing is read back
+    from the device."""
+    if isinstance(em, ConstantEmitter):
+        if em.host is None:
+            raise ValueError("ConstantEmitter without host copies: make it with "
+                             "scene.emitters.constant_emitter")
+        p.emitter = 0
+        p.radiance[:], p.const_weight[:] = em.host
+    elif isinstance(em, EnvmapEmitter):
+        p.emitter = 1
+        eH, eW = em.data.shape[:2]
+        p.env_H, p.env_W = eH, eW
+        p.env_data = _need(em.data, "envmap data", dev, shape=(eH, eW, 3))
+        p.env_alias = _need(em.alias_tab, "alias table", dev, shape=(eH * eW, 4))
+        p.env_row_pmf = _need(em.row_pmf, "row pmf", dev, shape=(eH,))
+        p.env_cond_pmf = _need(em.cond_pmf, "conditional pmf", dev, shape=(eH, eW))
+        if em.to_world_host is None:
+            raise ValueError("EnvmapEmitter without its host to_world: make it with "
+                             "scene.emitters.make_envmap")
+        p.env_to_world[:] = em.to_world_host
+        if deferred and em.nee is not None:
+            c = em.nee
+            cH, cW = c.data.shape[:2]
+            p.nee_H, p.nee_W = cH, cW
+            p.nee_alias = _need(c.alias_tab, "proxy alias table", dev, shape=(cH * cW, 4))
+            p.nee_row_pmf = _need(c.row_pmf, "proxy row pmf", dev, shape=(cH,))
+            p.nee_cond_pmf = _need(c.cond_pmf, "proxy conditional pmf", dev, shape=(cH, cW))
+    else:
+        raise TypeError(f"unsupported emitter {type(em).__name__}")
+
+
 def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
                   escaped=None, dims=None, steps=None, path_state=None,
                   n: int = None, device=None, cls_counts=None,
@@ -357,34 +406,7 @@ def primal_params(cfg: VolpathConfig, scene: Scene, o, d, seed: int, L=None,
         p.sub = _need(m.sub, "subcell table", dev)
         p.Ds, p.Hs, p.Ws = m.sub.shape
     p.n = n
-    em = scene.emitter
-    if isinstance(em, ConstantEmitter):
-        if em.host is None:
-            raise ValueError("ConstantEmitter without host copies: make it with "
-                             "scene.emitters.constant_emitter")
-        p.emitter = 0
-        p.radiance[:], p.const_weight[:] = em.host
-    elif isinstance(em, EnvmapEmitter):
-        p.emitter = 1
-        eH, eW = em.data.shape[:2]
-        p.env_H, p.env_W = eH, eW
-        p.env_data = _need(em.data, "envmap data", dev, shape=(eH, eW, 3))
-        p.env_alias = _need(em.alias_tab, "alias table", dev, shape=(eH * eW, 4))
-        p.env_row_pmf = _need(em.row_pmf, "row pmf", dev, shape=(eH,))
-        p.env_cond_pmf = _need(em.cond_pmf, "conditional pmf", dev, shape=(eH, eW))
-        if em.to_world_host is None:
-            raise ValueError("EnvmapEmitter without its host to_world: make it with "
-                             "scene.emitters.make_envmap")
-        p.env_to_world[:] = em.to_world_host
-        if deferred and em.nee is not None:
-            c = em.nee
-            cH, cW = c.data.shape[:2]
-            p.nee_H, p.nee_W = cH, cW
-            p.nee_alias = _need(c.alias_tab, "proxy alias table", dev, shape=(cH * cW, 4))
-            p.nee_row_pmf = _need(c.row_pmf, "proxy row pmf", dev, shape=(cH,))
-            p.nee_cond_pmf = _need(c.cond_pmf, "proxy conditional pmf", dev, shape=(cH, cW))
-    else:
-        raise TypeError(f"unsupported emitter {type(em).__name__}")
+    emitter_params(p, scene.emitter, dev, deferred)
     p.max_depth, p.rr_depth, p.max_steps = cfg.max_depth, cfg.rr_depth, cfg.max_steps
     p.draw_rounds = _DRAW_ROUNDS
     p.use_nee, p.hide_emitters = int(cfg.use_nee), int(cfg.hide_emitters)

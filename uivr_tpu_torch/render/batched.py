@@ -8,7 +8,9 @@ the same pixels, replays their primal detached and runs the path-replay
 adjoint.  Seeds are TEA-derived per purpose exactly as in the reference
 (pixel sampler ``tea(seed, 5)``, primal subpixel sampler ``tea(seed, 22)``,
 adjoint subpixel sampler ``tea(seed_grad, 39)``), so both packages trace
-the same rays and paths.
+the same rays and paths.  The integrator is either config of the
+reference: the volumetric path tracer (``VolpathConfig``) or the NeRF
+bootstrap march (``NerfConfig``, ``ops/nerf_step.py``).
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import dataclasses
 import functools
 import os
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,8 +26,9 @@ import torch
 from ..core.device import resolve_device
 from ..core.rng import make_sampler, next_2d, sample_tea_32
 from ..integrators import volpath_flat
+from ..integrators.nerf import NerfConfig
 from ..integrators.volpathsimple import VolpathConfig
-from ..ops import volpath_step
+from ..ops import nerf_step, volpath_step
 from ..scene.camera import Cameras, sample_rays
 from ..scene.medium import MediumConfig, MediumParams, finalize_medium
 from ..scene.scene import Emitter, Scene
@@ -78,9 +81,12 @@ def _inv_film(film_size, device) -> torch.Tensor:
     return 1.0 / torch.tensor(film_size, dtype=torch.float32, device=device)
 
 
+IntegratorConfig = Union[NerfConfig, VolpathConfig]
+
+
 @dataclass(frozen=True)
 class RenderSettings:
-    integrator: VolpathConfig
+    integrator: IntegratorConfig
     medium: MediumConfig
     film_size: Tuple[int, int]
     spp: int
@@ -111,13 +117,15 @@ def _resolve_engine(cfg, o: torch.Tensor) -> str:
     raise ValueError(f"unknown engine {e!r}")
 
 
-def _dispatch_primal(cfg: VolpathConfig, scene: Scene, o, d, seed, k_cand=None):
+def _dispatch_primal(cfg: IntegratorConfig, scene: Scene, o, d, seed, k_cand=None):
     """``k_cand``: K-candidate batching of the kernel engine, None reading
     ``UIVR_KCAND``; the backward's replay passes 1.  The flat engine ignores
     it, as the reference's does; on cpu tensors the K twin stands in for the
-    kernel (``sample_primal_kernel`` there)."""
-    if not isinstance(cfg, VolpathConfig):
-        raise NotImplementedError(f"{type(cfg).__name__}: not ported yet")
+    kernel (``sample_primal_kernel`` there).  NeRF ignores it: its march
+    runs ``nerf_primal_kernel`` on cuda tensors, the plain version on cpu
+    tensors."""
+    if isinstance(cfg, NerfConfig):
+        return nerf_step.sample_primal_kernel(cfg, scene, o, d, seed)
     engine = _resolve_engine(cfg, o)
     k = 1 if getattr(cfg, "engine", "auto") == "flat" else resolve_k_cand(k_cand)
     if engine == "kernel" or k > 1:
@@ -125,9 +133,9 @@ def _dispatch_primal(cfg: VolpathConfig, scene: Scene, o, d, seed, k_cand=None):
     return volpath_flat.sample_primal(cfg, scene, o, d, seed)
 
 
-def _dispatch_adjoint(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, L):
-    if not isinstance(cfg, VolpathConfig):
-        raise NotImplementedError(f"{type(cfg).__name__}: not ported yet")
+def _dispatch_adjoint(cfg: IntegratorConfig, scene: Scene, o, d, seed, dL, L):
+    if isinstance(cfg, NerfConfig):
+        return nerf_step.sample_adjoint_kernel(cfg, scene, o, d, seed, dL, L)
     if _resolve_engine(cfg, o) == "kernel":
         return volpath_step.sample_adjoint_kernel(cfg, scene, o, d, seed, dL, L)
     return volpath_flat.sample_adjoint(cfg, scene, o, d, seed, dL, L)
@@ -215,8 +223,8 @@ def render_backward(st: RenderSettings, scene: Scene, cameras: Cameras,
 class RenderOp(torch.autograd.Function):
     """The batch render as an autograd function of the three grids:
     forward renders the primal image, backward runs
-    :func:`render_backward` and returns gradients for ``sigma_t`` and
-    ``albedo`` and zeros for ``emission``."""
+    :func:`render_backward` and returns the gradients of all three (the
+    path tracer's emission gradient is zero, NeRF's albedo gradient)."""
 
     @staticmethod
     def forward(ctx, st, medium_to_world, emitter, cameras, sensor_idx, pixels,
@@ -233,8 +241,7 @@ class RenderOp(torch.autograd.Function):
         with torch.no_grad():
             g = render_backward(ctx.st, ctx.scene, ctx.cameras, sensor_idx,
                                 pixels, seed_grad, g_img.contiguous())
-        zero_em = torch.zeros_like(ctx.scene.medium.params.emission)
-        return (None,) * 8 + (g.sigma_t, g.albedo, zero_em)
+        return (None,) * 8 + (g.sigma_t, g.albedo, g.emission)
 
 
 def make_render(settings: RenderSettings, medium_to_world: np.ndarray = None):

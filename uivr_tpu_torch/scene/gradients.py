@@ -66,3 +66,14 @@ def scatter_sigma(acc: GradAccum, m: Medium, p: torch.Tensor,
     idx = torch.nonzero(mask).flatten()
     trilinear_scatter(acc.sigma, p[idx], (cot_sigma[idx] * m.scale)[:, None])
     return acc
+
+
+def scatter_emission(acc: GradAccum, m: Medium, p: torch.Tensor,
+                     cot: torch.Tensor, mask: torch.Tensor,
+                     scaled: bool = True) -> GradAccum:
+    """Accumulate a cotangent on emission(p) (n, 3); with ``scaled``
+    (emission = scale * grid) it takes the chain factor ``m.scale``."""
+    idx = torch.nonzero(mask).flatten()
+    c = cot[idx] * m.scale if scaled else cot[idx]
+    trilinear_scatter(acc.emission, p[idx], c)
+    return acc

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import aabb
 from ..core.grids import (build_bound_grid, build_majorant_grid, cls_dims,
                           trilinear_sample)
 
@@ -127,3 +128,32 @@ def sigma_albedo_at(m: Medium, p: torch.Tensor):
     lookup of the interleaved grid."""
     v = trilinear_sample(m.grid, p)
     return v[:, 0] * m.scale, v[:, 1:]
+
+
+def sigma_t_at(m: Medium, p: torch.Tensor) -> torch.Tensor:
+    """(n,) extinction (scaled) at local points (n, 3)."""
+    return trilinear_sample(m.params.sigma_t, p)[:, 0] * m.scale
+
+
+def emission_at(m: Medium, p: torch.Tensor, scaled: bool = True) -> torch.Tensor:
+    """(n, 3) emission radiance at local points (n, 3); ``scale * grid``
+    when ``scaled``."""
+    e = trilinear_sample(m.params.emission, p)
+    return e * m.scale if scaled else e
+
+
+def to_local_rays(m: Medium, o: torch.Tensor, d: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """World rays -> the medium's local frame (directions not
+    renormalised, so ray parameters agree between frames)."""
+    return (aabb.transform_points(m.world_to_local, o),
+            aabb.transform_dirs(m.world_to_local, d))
+
+
+def intersect_bbox(m: Medium, o_world: torch.Tensor, d_world: torch.Tensor,
+                   tmin=0.0, tmax=aabb.INF):
+    """Ray / medium-boundary intersection: ``(t_near, t_far, hit)`` in world
+    ray parameters, and the local-frame ray ``(o_l, d_l)``."""
+    ol, dl = to_local_rays(m, o_world, d_world)
+    tn, tf, hit = aabb.ray_unit_cube(ol, dl, tmin, tmax)
+    return tn, tf, hit, ol, dl
