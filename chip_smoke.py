@@ -22,8 +22,8 @@ so nothing is timed meanwhile):
 
 1. device: the card (``nvidia-smi`` name and power limit on a line of its
    own), torch and CUDA versions, and the kernels' nvcc builds (one nvcc
-   per source, started together, with the ``--fmad=true`` primal and the
-   scalar-atomic NeRF variants) with ptxas' registers and spills; with
+   per source, started together, with the ``--fmad=true`` primal) with
+   ptxas' registers and spills; with
    ``--sweep`` also the variants of the persistent kernels
    (PERSIST_VARIANTS: the minimum-blocks bound of ``__launch_bounds__`` at
    3 to 6 beside the package's own, PACKAGE_MIN_BLOCKS).
@@ -153,8 +153,20 @@ so nothing is timed meanwhile):
    just before (both kernels launched, no plain call on the card, finite
    losses, the final checkpoint); one full-width ``volpathsimple-drt`` step
    of janga-smoke-from-nerf warm-started from it through ``_run_stages``;
-   ``cli.render --integrator nerf --spp 64 --checkpoint`` of it; both
-   kernels alone.
+   ``cli.render --integrator nerf --spp 64 --checkpoint`` of it; then
+   both kernels against their one-ray-per-thread twins (``nerf_*_direct``,
+   which only this phase launches) at every grid resolution of the stage
+   (janga's truth grids resized to 8^3 ... 128^3, the truth step's rays
+   and dL) and at dust-devil's 256^3 truth grids with a dust-devil NeRF
+   step's rays (262,144 forward, 131,072 adjoint, dL from a seed): the
+   primal bit for bit on every lane, the adjoint's gradients' relative L1
+   to the direct kernel's, to a second run of it, and of both to the
+   float64 sums of the direct kernel's terms (the redesigned within 1e-5
+   of those at every shape; the others are reported), both lane
+   utilizations, the adjoints' global atomics a launch (counting builds),
+   times in turns (direct, new, new, direct),
+   and the L2 probe's random float4 gather and atomic rates at each grid's
+   voxel count (``csrc/l2_probe.cu``), which give the rows' L2 model times.
 9b. xml: the XML path.  ``write_standins`` writes stand-in assets of the
    shapes janga-smoke's and dust-devil's XML files and scene vars name
    (plumes of 136x264x136 and 256^3 voxels, albedo 128x256x128 noise and a
@@ -197,8 +209,9 @@ so nothing is timed meanwhile):
    k7_train; the one-ray-per-thread K7 and DRT walk and NEE kernels as
    ``comparison_only`` rows (0 launches on the main path); the NeRF rows
    (``nerf_primal``, ``nerf_adjoint``: launches in the 25-iteration stage,
-   times in its truth step).  With UIVR_KCAND unset the main path must
-   launch no K7 kernel.
+   times in its truth step, times at every shape of phase 9a; their
+   direct twins as ``comparison_only`` rows).  With UIVR_KCAND unset the
+   main path must launch no K7 kernel.
    ``launches_per_train_step`` is the counters' growth over the main
    run's first recorded step.
 11. the last line: {"ok": true, "device": {...}}.
@@ -255,6 +268,7 @@ LANE_DRAW_ROUNDS = 5      # a walking kernel's per-lane draw (core/rng._DRAW_ROU
 NERF_FLOP_PER_STEP = {"nerf_primal": 129, "nerf_adjoint": 218}
 NERF_FLOP_PER_RAY = 40    # the ray's transform, slab test, entry and step
 NERF_KERNELS = ("nerf_primal", "nerf_adjoint")
+NERF_RES = (8, 16, 32, 64, 128)   # the grid resolutions of the reference's NeRF stage
 
 
 T0 = time.perf_counter()
@@ -311,6 +325,33 @@ def build_fmad_variant():
                              str(vs.CSRC / "volpath_primal.cu")],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, out
+
+
+def build_l2_probe():
+    """Start nvcc on the L2 probe (``csrc/l2_probe.cu``, not one of the
+    package's libraries) into build/, beside the package's own build."""
+    from uivr_tpu_torch.ops import volpath_step as vs
+    out = vs.build_dir() / "libuivr_l2_probe.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    proc = subprocess.Popen([vs._nvcc(), *vs.NVCC_FLAGS, "-o", str(out),
+                             str(vs.CSRC / "l2_probe.cu")],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, out
+
+
+def load_l2_probe(proc, path):
+    """Wait for the probe's build and load it: (ctypes library, nvcc log)."""
+    import ctypes
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc l2_probe.cu failed:\n{log}")
+    lib = ctypes.CDLL(str(path))
+    lib.l2_gather_launch.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.l2_atomic_launch.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p]
+    lib.l2_gather_launch.restype = lib.l2_atomic_launch.restype = ctypes.c_int
+    return lib, log
 
 
 def time_render_parts(st, b, seed, spp):
@@ -1467,11 +1508,9 @@ def nerf_step_parts(rec):
 def nerf_work(scene, o, d, steps):
     """(active rays, bytes the primal and the adjoint must move, their
     float and integer operations, bytes their steps fetch) for rays o, d."""
-    from uivr_tpu_torch.scene.medium import intersect_bbox
     m, em = scene.medium, scene.emitter
     n = o.shape[0]
-    tn, tf, _, _, _ = intersect_bbox(m, o, d)
-    active = int((tf > tn).sum())
+    active = int(nerf_active(scene, o, d).sum())
     grid = m.params.sigma_t[..., 0].numel() * 16
     env = em.data.numel() * 4 if hasattr(em, "data") else 0
     march = active * steps
@@ -1487,30 +1526,248 @@ def nerf_work(scene, o, d, steps):
                                  fetch=march * 256 + 48 * n)}
 
 
-def nerf_kernel_ms(vs, nerf_step, cfg, scene, o, d, seed, dL, L, reps=10):
-    """CUDA-event ms of the NeRF kernels alone (their launchers, no
-    counting), on one grid made beforehand: (primal ms, adjoint ms)."""
-    import ctypes
+class NerfShape:
+    """The NeRF kernels at one shape through their launchers, on grids and
+    parameter blocks made once: the forward rays' primal and the adjoint
+    rays' adjoint (``L_in`` their replay, ``dL`` given), each through the
+    main path's launcher or its one-ray-per-thread twin, the adjoint's
+    global atomics (its counting builds) on request."""
 
+    def __init__(self, vs, nerf_step, cfg, scene, fwd, adj, dL):
+        import ctypes
+
+        import torch
+        self.ctypes = ctypes
+        self.lib = vs._load("nerf")
+        (o, d, seed), (ao, ad, aseed) = fwd, adj
+        dev = o.device
+        self.grid = nerf_step.nerf_grid(scene.medium)
+        self.stream = torch.cuda.current_stream().cuda_stream
+        self.count = torch.zeros((1,), dtype=torch.int64, device=dev)
+        self.p, self.p_scratch = nerf_step.nerf_params(cfg, scene, o, d, seed, self.grid)
+        self.L = torch.empty((o.shape[0], 3), dtype=torch.float32, device=dev)
+        self.valid = torch.empty((o.shape[0],), dtype=torch.bool, device=dev)
+        self.p.P.L, self.p.valid = self.L.data_ptr(), self.valid.data_ptr()
+        self.a, self.a_scratch = nerf_step.nerf_params(cfg, scene, ao, ad, aseed, self.grid)
+        self.L_in = torch.empty((ao.shape[0], 3), dtype=torch.float32, device=dev)
+        valid_in = torch.empty((ao.shape[0],), dtype=torch.bool, device=dev)
+        self.a.P.L, self.a.valid = self.L_in.data_ptr(), valid_in.data_ptr()
+        self._check(self.lib.nerf_primal_launch(ctypes.byref(self.a), self.stream))
+        self.a.P.L, self.a.valid = None, None
+        self.dL = dL.contiguous()
+        self.g = torch.zeros_like(self.grid)
+        self.a.L_in, self.a.dL, self.a.g_grid = (self.L_in.data_ptr(), self.dL.data_ptr(),
+                                                 self.g.data_ptr())
+        self.n, self.n_adj = o.shape[0], ao.shape[0]
+
+    @staticmethod
+    def _check(rc):
+        if rc != 0:
+            raise RuntimeError(f"a NeRF kernel launch failed ({rc})")
+
+    def primal(self, direct=False):
+        name = "nerf_primal_direct_launch" if direct else "nerf_primal_launch"
+        self._check(getattr(self.lib, name)(self.ctypes.byref(self.p), self.stream))
+
+    def adjoint(self, direct=False, count=False, fresh=False):
+        if fresh:
+            self.g.zero_()
+        if count:
+            self.count.zero_()
+            self.a.atomics = self.count.data_ptr()
+        name = "nerf_adjoint_direct_launch" if direct else "nerf_adjoint_launch"
+        rc = getattr(self.lib, name)(self.ctypes.byref(self.a), self.stream)
+        self.a.atomics = None
+        self._check(rc)
+
+
+def nerf_active(scene, o, d):
+    """(n,) bool: the rays that enter the medium's box."""
+    from uivr_tpu_torch.scene.medium import intersect_bbox
+    tn, tf, _, _, _ = intersect_bbox(scene.medium, o, d)
+    return tf > tn
+
+
+def l2_probe(lib, dev, voxels, rounds=16, reps=3):
+    """Random float4 gathers and float4 atomicAdds over a buffer of each
+    voxel count in ``voxels`` (``lib``: ``load_l2_probe``'s build of
+    ``csrc/l2_probe.cu``): per count the operations a launch ran, ms and
+    rates (operations/s)."""
     import torch
-    lib = vs._load("nerf")
-    grid = nerf_step.nerf_grid(scene.medium)
-    Lk = torch.empty_like(L)
-    valid = torch.empty(L.shape[0], dtype=torch.bool, device=L.device)
-    g4 = torch.zeros_like(grid)
-    p = nerf_step.nerf_params(cfg, scene, o, d, seed, grid)
-    p.P.L, p.valid, p.L_in, p.dL, p.g_grid = (Lk.data_ptr(), valid.data_ptr(), L.data_ptr(),
-                                              dL.data_ptr(), g4.data_ptr())
     stream = torch.cuda.current_stream().cuda_stream
+    blocks = SMS * 16
+    ops = blocks * 128 * rounds * 8
+    out = torch.empty((blocks * 128,), dtype=torch.float32, device=dev)
+    rec = {}
+    for nv in voxels:
+        buf = torch.zeros((nv, 4), dtype=torch.float32, device=dev)
 
-    def launch(fn):
-        if fn(ctypes.byref(p), stream):
-            raise RuntimeError("a NeRF kernel launch failed")
-    return (cuda_ms(lambda: launch(lib.nerf_primal_launch), reps),
-            cuda_ms(lambda: launch(lib.nerf_adjoint_launch), reps))
+        def gather():
+            if lib.l2_gather_launch(buf.data_ptr(), nv, rounds, blocks, out.data_ptr(), stream):
+                raise RuntimeError("l2_gather launch failed")
+
+        def atomic():
+            if lib.l2_atomic_launch(buf.data_ptr(), nv, rounds, blocks, stream):
+                raise RuntimeError("l2_atomic launch failed")
+        gather()
+        atomic()
+        g_ms, a_ms = cuda_ms(gather, reps), cuda_ms(atomic, reps)
+        rec[nv] = {"bytes": nv * 16, "ops": ops, "gather_ms": g_ms, "atomic_ms": a_ms,
+                   "gathers_per_s": ops / g_ms * 1e3, "atomics_per_s": ops / a_ms * 1e3}
+        del buf
+    return rec
 
 
-def phase_nerf(card, vs, janga, out_dir):
+def listed_utilization(hits):
+    """Busy share of the lanes of a launch over ``hits`` listed rays, one a
+    thread, each the same number of queries: hits / (32 x its warps)."""
+    return hits / max(32 * -(-hits // 32), 1)
+
+
+def nerf_shape_record(vs, nerf_step, tag, cfg, scene, fwd, adj, dL, probe, reps=5):
+    """One shape of phase_nerf step 5: the redesigned primal against the
+    direct one on every lane (L and valid bit for bit), the redesigned
+    adjoint's gradients against the direct one's (relative L1), against a
+    second run of the direct kernel's, and both against the float64 sums
+    of the direct kernel's terms (its ``g_grid64`` build), both
+    kernels' lane utilization (the direct's from its warps of 32
+    consecutive rays, the redesigned's from its list), the adjoints' global
+    atomics a launch (counting builds), ms in turns, and the L2 model's ms
+    (``probe``'s rates at the grid's voxel count)."""
+    import torch
+    sh = NerfShape(vs, nerf_step, cfg, scene, fwd, adj, dL)
+    sh.primal(direct=True)
+    Ld, vd = sh.L.clone(), sh.valid.clone()
+    sh.primal()
+    torch.cuda.synchronize()
+    hits = int(sh.p_scratch[1].item())
+    equal = bool(torch.equal(sh.L, Ld) and torch.equal(sh.valid, vd))
+    sh.adjoint(direct=True, count=True, fresh=True)
+    torch.cuda.synchronize()
+    gd, adds_d = sh.g.clone(), int(sh.count.item())
+    sh.adjoint(count=True, fresh=True)
+    torch.cuda.synchronize()
+    hits_a, adds_k = int(sh.a_scratch[1].item()), int(sh.count.item())
+    gk = sh.g.clone()
+    sh.adjoint(direct=True, fresh=True)             # the direct kernel again
+    gd2 = sh.g.clone()
+    g64 = torch.zeros(sh.g.shape, dtype=torch.float64, device=sh.g.device)
+    sh.a.g_grid64 = g64.data_ptr()
+    sh.adjoint(direct=True)                         # its terms summed in float64
+    sh.a.g_grid64 = None
+    torch.cuda.synchronize()
+
+    def rel(a, ref):
+        return {"sigma_t": rel_l1(a[..., :1].double(), ref[..., :1].double()),
+                "emission": rel_l1(a[..., 1:].double(), ref[..., 1:].double())}
+    act = nerf_active(scene, fwd[0], fwd[1])
+    act_a = nerf_active(scene, adj[0], adj[1])
+    steps = cfg.queries_per_ray
+    util_d = {"nerf_primal": warp_utilization(act.to(torch.int64) * steps),
+              "nerf_adjoint": warp_utilization(act_a.to(torch.int64) * steps)}
+    ms = {}
+    for key, run in (("nerf_primal", sh.primal), ("nerf_adjoint", sh.adjoint)):
+        d_ms, k_ms, t = turns_ms(lambda: run(direct=True), run, reps)
+        ms[key] = {"direct": d_ms, "redesigned": k_ms, "turns": t, "speedup": d_ms / k_ms}
+    voxels = int(sh.grid[..., 0].numel())
+    rate = probe[voxels]
+    gathers = {"nerf_primal": int(act.sum()) * steps * 8,
+               "nerf_adjoint": int(act_a.sum()) * steps * 8}
+    l2 = {k: {"l2_gather_ms": gathers[k] / rate["gathers_per_s"] * 1e3} for k in gathers}
+    l2["nerf_adjoint"].update(
+        l2_atomic_ms_direct=adds_d / rate["atomics_per_s"] * 1e3,
+        l2_atomic_ms=adds_k / rate["atomics_per_s"] * 1e3)
+    return {"shape": tag, "grid": list(sh.grid.shape[:3]), "rays": sh.n, "adjoint_rays": sh.n_adj,
+            "active": int(act.sum()), "active_adjoint": int(act_a.sum()),
+            "listed": {"nerf_primal": hits, "nerf_adjoint": hits_a},
+            "primal_equal_to_direct": equal, "adjoint_rel_l1_to_direct": rel(gk, gd),
+            "direct_rel_l1_to_itself": rel(gd2, gd),
+            "adjoint_rel_l1_to_f64": {"redesigned": rel(gk, g64), "direct": rel(gd, g64)},
+            "utilization_direct": util_d,
+            "utilization": {"nerf_primal": listed_utilization(hits),
+                            "nerf_adjoint": listed_utilization(hits_a)},
+            "atomics": {"direct": adds_d, "redesigned": adds_k},
+            "ms": ms, "l2_model": l2}
+
+
+def nerf_step_rays(b, batch, spp, seed, dev):
+    """The rays of a NeRF training pass: ``batch`` pixels drawn from a seed
+    over every sensor, ``spp`` rays each (``render/batched._expand_rays``)."""
+    import torch
+    from uivr_tpu_torch.render import batched
+    rs = np.random.RandomState(seed)
+    W, H = b.film_size
+    sidx = torch.from_numpy(rs.randint(0, b.cameras.n_sensors, batch)).to(dev)
+    pix = torch.from_numpy(np.stack([rs.randint(0, W, batch), rs.randint(0, H, batch)],
+                                    axis=-1)).to(dev)
+    o, d = batched._expand_rays(b.cameras, sidx, pix, b.film_size, spp, seed + 1)
+    return o.contiguous(), d.contiguous()
+
+
+def nerf_stage_iterations(res):
+    """{grid resolution: iterations} of the reference's NeRF stage (6000
+    iterations, upsampled at ``BASE_OPT["upsample"]``; the grid doubles at
+    each from 128 / 2**len(upsample))."""
+    from uivr_tpu_torch.cli import reproduce
+    from uivr_tpu_torch.opt.schedule import upsample_iterations
+    n = reproduce.BASE_OPT["n_iter"]
+    at = sorted(upsample_iterations(reproduce.BASE_OPT["upsample"], n)) + [n]
+    starts = [0] + at[:-1]
+    return {r: e - s_ for r, s_, e in zip(res, starts, at)}
+
+
+def nerf_shapes(card, vs, probe_lib, nerf_step, cfg, janga_in, dust_in):
+    """phase_nerf step 5 at every grid resolution of the stage (janga's
+    truth grids resized by ``resize_trilinear``, the given rays) and at
+    dust-devil's 256^3 truth grids with a dust-devil NeRF step's rays, with
+    the L2 probe's rates at each grid's voxel count; one ``nerf_shape``
+    line each, and the stage's kernel time at each resolution weighted by
+    its iterations.  Returns {shape: record}."""
+    import torch
+    from uivr_tpu_torch.core.grids import resize_trilinear
+    from uivr_tpu_torch.scene.medium import MediumParams, finalize_medium
+    from uivr_tpu_torch.scene.scene import Scene
+    (b, scene, fwd, adj, dL), (db, dscene, dfwd, dadj, ddL) = janga_in, dust_in
+    dev = fwd[0].device
+    probe = l2_probe(probe_lib, dev, [r ** 3 for r in NERF_RES] + [int(dscene.medium.params.sigma_t[
+        ..., 0].numel())])
+    emit({"phase": "nerf_l2_probe", "rates": {str(k): v for k, v in probe.items()},
+          "card": card})
+    out = {}
+    for res in NERF_RES:
+        if res == scene.medium.params.sigma_t.shape[0]:
+            sc = scene
+        else:
+            grids = MediumParams(*[resize_trilinear(g, (res,) * 3)
+                                   for g in scene.medium.params])
+            sc = Scene(finalize_medium(grids, b.medium_cfg, b.to_world), scene.emitter,
+                       scene.cameras)
+        out[f"janga-{res}"] = nerf_shape_record(vs, nerf_step, f"janga-smoke {res}^3", cfg, sc,
+                                                fwd, adj, dL, probe)
+        emit({"phase": "nerf_shape", **out[f"janga-{res}"], "card": card})
+        del sc
+        torch.cuda.empty_cache()
+    out["dust-256"] = nerf_shape_record(vs, nerf_step, "dust-devil 256^3", cfg, dscene, dfwd,
+                                        dadj, ddL, probe)
+    emit({"phase": "nerf_shape", **out["dust-256"], "card": card})
+    iters = nerf_stage_iterations(NERF_RES)
+    stage = {w: sum(iters[r] * (2 * out[f"janga-{r}"]["ms"]["nerf_primal"][w]
+                                + out[f"janga-{r}"]["ms"]["nerf_adjoint"][w])
+                    for r in NERF_RES) / 1e3 for w in ("direct", "redesigned")}
+    emit({"phase": "nerf_stage_kernels", "iterations": iters,
+          "kernel_s_per_stage": stage, "card": card})
+    # the adjoint's float32 sums against the float64 sums of the same terms
+    # (the direct kernel's own float32 sums stray further on coarse grids)
+    bad = {k: v for k, v in out.items()
+           if not v["primal_equal_to_direct"]
+           or any(e > 1e-5 for e in v["adjoint_rel_l1_to_f64"]["redesigned"].values())}
+    if bad:
+        raise RuntimeError(f"nerf shapes: the redesigned kernels disagree with the direct ones "
+                           f"at {sorted(bad)}")
+    return out, stage
+
+
+def phase_nerf(card, vs, probe_lib, janga, dust, out_dir):
     """The NeRF bootstrap stage of janga-smoke at the reference's width
     (``_opt_for("janga-smoke", "nerf", 1.0)``: batch 32,768, spp 4, primal
     factor 1, lr 1e-2: 131,072 forward, replay and adjoint rays a step, 128
@@ -1522,14 +1779,15 @@ def phase_nerf(card, vs, janga, out_dir):
        on the truth step's own inputs, the step's parts;
     2. the stage through ``cli.reproduce._run_stages`` with n_iter cut to
        25 (upsampling at 1, 4, 9, 16: 8^3 to 128^3), every counter set to 0
-       just before: both kernels launched, no plain call, no volpath
-       kernel, finite losses, a final checkpoint at 128^3;
+       just before: both kernels launched, their direct twins not, no plain
+       call, no volpath kernel, finite losses, a final checkpoint at 128^3;
     3. one full-width ``volpathsimple-drt`` step of janga-smoke-from-nerf
        through ``_run_stages``, warm-started from that checkpoint;
     4. ``cli.render --integrator nerf --spp 64 --checkpoint`` of it;
-    5. both kernels timed alone (CUDA events, their launchers) and in the
-       truth step, the adjoint with one float4 atomic a corner against the
-       build with four scalar ones in turns, plain times, bounds.
+    5. both kernels against their direct twins at every shape of
+       ``nerf_shapes`` (every resolution of the stage, on the truth step's
+       rays, and dust-devil's 256^3), the direct twins against the plain
+       version on the truth step's inputs, plain times, bounds.
     Returns the kernels line's rows."""
     import argparse
     import shutil
@@ -1656,6 +1914,7 @@ def phase_nerf(card, vs, janga, out_dir):
         emit({"phase": "nerf_stage", "scene": "janga-smoke", **stage_rec, "card": card})
         if not (launches.get("nerf_primal", 0) > 0 and launches.get("nerf_adjoint", 0) > 0
                 and not any(plain_calls.values()) and "volpath_primal" not in launches
+                and not any(launches.get(f"{k}_direct", 0) for k in NERF_KERNELS)
                 and len(r.steps) == 25 and losses_ and all(map(math.isfinite, losses_))
                 and final_ck.exists() and tuple(final.sigma_t.shape[:3]) == (128, 128, 128)
                 and sorted(first_at.values()) == [0, 1, 4, 9, 16]):
@@ -1706,33 +1965,74 @@ def phase_nerf(card, vs, janga, out_dir):
             and "volpath_primal" not in render_rec["launches"]):
         raise RuntimeError(f"nerf render: checks failed: {render_rec}")
 
-    # ---- 5. the kernels alone, bounds
-    ms_p, ms_a = nerf_kernel_ms(vs, nerf_step, cfg, adj["scene"], ao, ad, aseed, dL, L_in)
+    # ---- 5. the kernels at every resolution of the stage and out of L2, bounds
+    dust_in = nerf_dust_inputs(dust)
+    shapes, stage_s = nerf_shapes(card, vs, probe_lib, nerf_step, cfg,
+                                  (b, adj["scene"], (o, d, seed), (ao, ad, aseed), dL),
+                                  dust_in)
+    s128 = shapes["janga-128"]
+    # the direct kernels against the plain version on the truth step's inputs
+    Ld, _ = nerf_step.sample_primal_kernel(cfg, sc, o, d, seed, direct=True)
+    gd = nerf_step.sample_adjoint_kernel(cfg, adj["scene"], ao, ad, aseed, dL, L_in, direct=True)
+    torch.cuda.synchronize()
+    errs_direct = {"nerf_primal": (Ld - Lp).abs().max().item(), "nerf_adjoint": max(
+        (getattr(gd, k) - getattr(gp, k)).abs().max().item() for k in ("sigma_t", "emission"))}
     work = {"nerf_primal": nerf_work(sc, o, d, cfg.queries_per_ray),
             "nerf_adjoint": nerf_work(adj["scene"], ao, ad, cfg.queries_per_ray)}
     step_ms = {"nerf_primal": parts["truth"]["forward"], "nerf_adjoint": parts["truth"]["adjoint"]}
-    alone = {"nerf_primal": ms_p, "nerf_adjoint": ms_a}
     errs = {"nerf_primal": p_err, "nerf_adjoint": max(
         (getattr(g, k) - getattr(gp, k)).abs().max().item() for k in ("sigma_t", "emission"))}
     rows = []
     for name, line in (("nerf_primal", 61), ("nerf_adjoint", 95)):
         w = work[name][name]
         b_ms, b_by = bound(w["bytes"], w["flops"], w["ints"])
+        base = {"route": "cuda", "source": "uivr_tpu_torch/ops/csrc/nerf.cu",
+                "replaces": f"uivr_tpu/integrators/nerf.py:{line}", "tpu_kernel": False,
+                "plain_ms": check["plain_ms"][name], "bound_ms": b_ms, "bound_by": b_by,
+                "gather_bound_ms": bound(w["fetch"], 0)[0], "fetch_bytes": w["fetch"],
+                "library_ms": None, "active_rays": work[name]["active"],
+                "l2_gather_ms": s128["l2_model"][name]["l2_gather_ms"],
+                "shape": f"{n} rays x {cfg.queries_per_ray} queries, janga-smoke NeRF truth "
+                         f"step, 128^3 grid"}
+        by_res = {k: v["ms"][name] for k, v in shapes.items()}
         rows.append({
-            "name": name, "route": "cuda", "source": "uivr_tpu_torch/ops/csrc/nerf.cu",
-            "replaces": f"uivr_tpu/integrators/nerf.py:{line}", "tpu_kernel": False,
-            "launches": nerf_launches[name], "launches_per_nerf_step": check[
-                "launches_per_step"][name],
-            "max_abs_err": errs[name], "ms": step_ms[name], "ms_alone": alone[name],
-            "plain_ms": check["plain_ms"][name], "bound_ms": b_ms, "bound_by": b_by,
-            "gather_bound_ms": bound(w["fetch"], 0)[0], "fetch_bytes": w["fetch"],
-            "library_ms": None, "active_rays": work[name]["active"],
-            "shape": f"{n} rays x {cfg.queries_per_ray} queries, janga-smoke NeRF truth step, "
-                     f"128^3 grid"})
-    rows[1]["rel_l1"] = a_rel
+            "name": name, **base, "redesigned": "one listed ray inside the box a thread",
+            "launches": nerf_launches[name],
+            "launches_per_nerf_step": check["launches_per_step"][name],
+            "max_abs_err": errs[name], "ms": step_ms[name],
+            "ms_alone": s128["ms"][name]["redesigned"],
+            "ms_by_shape": {k: v["redesigned"] for k, v in by_res.items()},
+            "utilization": s128["utilization"][name]})
+        rows.append({
+            "name": f"{name}_direct", **base, "comparison_only": True,
+            "launches": nerf_launches.get(f"{name}_direct", 0),
+            "max_abs_err": errs_direct[name], "ms": s128["ms"][name]["direct"],
+            "ms_by_shape": {k: v["direct"] for k, v in by_res.items()},
+            "utilization": s128["utilization_direct"][name]})
     rows[0]["rel_max_abs_err"] = p_rel
-    emit({"phase": "nerf_kernels", "rows": rows, "card": card})
+    rows[2]["rel_l1"] = a_rel
+    for r in rows[2:]:
+        r["atomics"] = s128["atomics"]["direct" if r["name"].endswith("_direct") else "redesigned"]
+        r["l2_atomic_ms"] = s128["l2_model"]["nerf_adjoint"][
+            "l2_atomic_ms_direct" if r["name"].endswith("_direct") else "l2_atomic_ms"]
+    emit({"phase": "nerf_kernels", "rows": rows, "stage_kernel_s": stage_s, "card": card})
     return rows
+
+
+def nerf_dust_inputs(dust):
+    """dust-devil's NeRF step at its truth grids (256^3): its
+    ``EXPERIMENT_OVERRIDES`` batch, spp and primal factor give the forward
+    and adjoint rays (pixels and jitter from seeds), dL from a seed."""
+    import torch
+    from uivr_tpu_torch.cli import reproduce
+    _, db, dsc = dust
+    dstage = reproduce._opt_for("dust-devil", "nerf", 1.0)
+    dev = db.params.sigma_t.device
+    fwd = nerf_step_rays(db, dstage.batch_size, dstage.spp * dstage.primal_spp_factor, 31, dev)
+    adj = nerf_step_rays(db, dstage.batch_size, dstage.spp, 37, dev)
+    dL = torch.from_numpy(np.random.RandomState(41).randn(adj[0].shape[0], 3)
+                          .astype(np.float32) * 0.01).to(dev)
+    return db, dsc, (*fwd, 5), (*adj, 6), dL
 
 
 def table_bytes(scene):
@@ -2281,10 +2581,10 @@ def util_share(util):
     return c[0] / max(32 * c[1], 1)
 
 
-def turns_ms(a, b):
+def turns_ms(a, b, reps=1):
     """CUDA-event times (ms) of two versions of a launch in turns (a, b, b,
-    a), one launch each: (mean of a, mean of b, the four times)."""
-    t = [cuda_ms(f, 1) for f in (a, b, b, a)]
+    a), ``reps`` launches a turn: (mean of a, mean of b, the four times)."""
+    t = [cuda_ms(f, reps) for f in (a, b, b, a)]
     return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2, t
 
 
@@ -2967,6 +3267,7 @@ def main(argv=None):
                                text=True).stdout.strip()
     t0 = time.time()
     fmad_proc, fmad_lib = build_fmad_variant()
+    probe_job = build_l2_probe()
     variant_jobs = start_variant_builds() if sweep else {}
     vs.build()      # one nvcc per source, all started together
     for name in vs.LIBS:
@@ -2975,6 +3276,7 @@ def main(argv=None):
     if fmad_proc.returncode != 0:
         raise RuntimeError(f"nvcc --fmad=true failed:\n{fmad_log}")
     variants = finish_variant_builds(variant_jobs)
+    probe_lib, probe_log = load_l2_probe(*probe_job)
     build_s = time.time() - t0
     emit({"phase": "device", "card": card, "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -2983,6 +3285,7 @@ def main(argv=None):
           "build_s": round(build_s, 3),
           "nvcc_s": {k: b["seconds"] for k, b in vs.BUILD.items()},
           "ptxas": {k: ptxas_report(b["log"]) for k, b in vs.BUILD.items()},
+          "ptxas_l2_probe": ptxas_report(probe_log),
           "ptxas_variants": {f"{k}-{v}": r for (k, v), (_, r) in variants.items()},
           "bound_rates": {"hbm_bytes_per_s": HBM_BYTES_PER_S, "fp32_ops_per_s": FP32_OPS_PER_S,
                           "int32_ops_per_s": INT32_OPS_PER_S, "sm_clock_hz": SM_CLOCK_HZ,
@@ -3279,7 +3582,7 @@ def main(argv=None):
     dust_check = check_step(card, vs, "dust-devil truth", dust_truth)
     phase_cli(card, out_dir)
     phase_fd(card, vs, out_dir)
-    nerf_rows = phase_nerf(card, vs, janga, out_dir)
+    nerf_rows = phase_nerf(card, vs, probe_lib, janga, dust, out_dir)
     k3b, xml = phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk, more_ab)
     for k in kernels:
         k["launches_per_train_step"] = train["iterations"][0]["launches"].get(k["name"], 0)

@@ -2,13 +2,17 @@
 
 The reference marches NeRF rays in XLA (``uivr_tpu/integrators/nerf.py``:
 ``sample_primal`` :61, ``sample_adjoint`` :95); the port runs each pass as
-one CUDA kernel, ``nerf_primal_kernel`` and ``nerf_adjoint_kernel``
-(``csrc/nerf.cu`` over the per-ray march of ``csrc/nerf.cuh``), built with
-the path tracer's libraries (library ``"nerf"`` of ``volpath_step.LIBS``)
-and counted in ``volpath_step.LAUNCHES``.  Both read one interleaved
-(D, H, W, 4) grid [sigma, emission], made once per call by
-:func:`nerf_grid`; the adjoint adds into a zeroed grid of the same layout,
-which it splits into the sigma and emission gradients.
+one launcher call, ``nerf_primal_launch`` and ``nerf_adjoint_launch``
+(``csrc/nerf.cu`` over the march of ``csrc/nerf.cuh``): a kernel that lists
+the rays inside the medium's box, then one that marches them, one listed
+ray a thread (``nerf_primal_kernel``, ``nerf_adjoint_kernel``).  They are
+built with the path tracer's libraries (library ``"nerf"`` of
+``volpath_step.LIBS``) and counted in ``volpath_step.LAUNCHES``; with
+``direct=True`` a wrapper launches instead the one-ray-per-thread kernel
+over every ray that they replaced (``nerf_*_direct``, for comparison).
+Both read one interleaved (D, H, W, 4) grid [sigma, emission], made once
+per call by :func:`nerf_grid`; the adjoint adds into a zeroed grid of the
+same layout, which it splits into the sigma and emission gradients.
 
 On ``cpu`` tensors a wrapper runs the plain version
 (``integrators/nerf.py``); on ``cuda`` tensors it launches the kernel or
@@ -36,14 +40,21 @@ def nerf_grid(m) -> torch.Tensor:
     return torch.cat([m.params.sigma_t, m.params.emission], dim=-1).to(torch.float32).contiguous()
 
 
-def nerf_params(cfg: NerfConfig, scene: Scene, o, d, seed, grid) -> vs.NerfParams:
+def nerf_params(cfg: NerfConfig, scene: Scene, o, d, seed, grid):
     """The kernels' parameter block for rays ``o``, ``d`` (n, 3) on the
-    interleaved ``grid``, checking every tensor it names; the caller sets
-    the outputs.  Nothing is read back from the device."""
+    interleaved ``grid``, checking every tensor it names, with the
+    kernels' scratch (the list of rays inside the box and its length):
+    ``(params, scratch tensors)``; the caller sets the outputs.
+    Nothing is read back from the device."""
     if cfg.activation not in _ACTIVATIONS:
         raise ValueError(f"Unsupported activation: {cfg.activation}")
     m = scene.medium
     n, dev = o.shape[0], o.device
+    D, H, W = m.params.sigma_t.shape[:3]
+    if D * H * W * 4 >= 2 ** 31:
+        # the march indexes the grid's floats in int32 (nerf.cuh, nerf_cell)
+        raise ValueError(f"NeRF grid of {D}x{H}x{W} voxels: the kernels index at most "
+                         f"2^29 voxels")
     P = vs.PrimalParams()
     P.o = vs._need(o, "o", dev, shape=(n, 3))
     P.d = vs._need(d, "d", dev, shape=(n, 3))
@@ -59,13 +70,25 @@ def nerf_params(cfg: NerfConfig, scene: Scene, o, d, seed, grid) -> vs.NerfParam
     p.steps, p.jitter = cfg.queries_per_ray, int(cfg.jitter)
     p.relu = _ACTIVATIONS[cfg.activation]
     p.emission_scaled, p.hide_emitters = int(cfg.emission_scaled), int(cfg.hide_emitters)
-    return p
+    order = torch.empty((n,), dtype=torch.int32, device=dev)
+    listed = torch.empty((1,), dtype=torch.int64, device=dev)
+    p.order, p.listed = order.data_ptr(), listed.data_ptr()
+    return p, (order, listed)
 
 
-def sample_primal_kernel(cfg: NerfConfig, scene: Scene, o, d, seed):
+def _launch(key: str, p, dev, direct: bool) -> None:
+    """Launch ``key`` (``nerf_primal`` or ``nerf_adjoint``), or with
+    ``direct`` its one-ray-per-thread twin, on the current stream."""
+    name = f"{key}_direct" if direct else key
+    vs._launch(name, getattr(vs._load("nerf"), f"{name}_launch"), ctypes.byref(p),
+               vs._stream(dev))
+
+
+def sample_primal_kernel(cfg: NerfConfig, scene: Scene, o, d, seed, direct: bool = False):
     """NeRF radiance of world rays ``o``, ``d`` (n, 3) float32 with the
     jitter of sampler ``seed``: ``(L (n, 3), valid (n,))``.  On ``cuda``
-    tensors it launches ``nerf_primal_kernel``."""
+    tensors it launches ``nerf_primal_kernel`` (``direct``: the
+    one-ray-per-thread ``nerf_primal_direct_kernel``)."""
     n, dev = o.shape[0], o.device
     if not o.is_cuda:
         L, valid, _ = nerf.sample_primal(cfg, scene, o, d,
@@ -73,19 +96,19 @@ def sample_primal_kernel(cfg: NerfConfig, scene: Scene, o, d, seed):
         return L, valid
     L = torch.empty((n, 3), dtype=torch.float32, device=dev)
     valid = torch.empty((n,), dtype=torch.bool, device=dev)
-    p = nerf_params(cfg, scene, o, d, seed, nerf_grid(scene.medium))
+    p, _ = nerf_params(cfg, scene, o, d, seed, nerf_grid(scene.medium))
     p.P.L, p.valid = L.data_ptr(), valid.data_ptr()
-    vs._launch("nerf_primal", vs._load("nerf").nerf_primal_launch, ctypes.byref(p),
-               vs._stream(dev))
+    _launch("nerf_primal", p, dev, direct)
     return L, valid
 
 
 def sample_adjoint_kernel(cfg: NerfConfig, scene: Scene, o, d, seed, dL,
-                          state_in) -> MediumParams:
+                          state_in, direct: bool = False) -> MediumParams:
     """Path-replay adjoint of the same rays and ``seed`` given ``dL`` and
     the primal radiance ``state_in`` (n, 3): the grids' gradients (zero
-    albedo).  On ``cuda`` tensors it launches ``nerf_adjoint_kernel``,
-    which adds into a zero grid with atomics."""
+    albedo).  On ``cuda`` tensors it launches ``nerf_adjoint_kernel``
+    (``direct``: ``nerf_adjoint_direct_kernel``), which adds into a zero
+    grid with atomics."""
     n, dev = o.shape[0], o.device
     m = scene.medium
     if not o.is_cuda:
@@ -94,11 +117,10 @@ def sample_adjoint_kernel(cfg: NerfConfig, scene: Scene, o, d, seed, dL,
         return g
     grid = nerf_grid(m)
     g4 = torch.zeros_like(grid)
-    p = nerf_params(cfg, scene, o, d, seed, grid)
+    p, _ = nerf_params(cfg, scene, o, d, seed, grid)
     p.L_in = vs._need(state_in, "state_in", dev, shape=(n, 3))
     p.dL = vs._need(dL, "dL", dev, shape=(n, 3))
     p.g_grid = g4.data_ptr()
-    vs._launch("nerf_adjoint", vs._load("nerf").nerf_adjoint_launch, ctypes.byref(p),
-               vs._stream(dev))
+    _launch("nerf_adjoint", p, dev, direct)
     return MediumParams(sigma_t=g4[..., :1].contiguous(), albedo=torch.zeros_like(m.params.albedo),
                         emission=g4[..., 1:].contiguous())

@@ -25,11 +25,16 @@ The CUDA sources live in ``csrc/``:
                           (primal, K7 primal, adjoint, the DRT term's walk
                           and NEE): lanes take rays from a work counter and
                           a new one as soon as theirs ends
-- ``nerf.cuh``            one ray of the NeRF stage's march, primal and
-                          adjoint (wrapped by ``ops/nerf_step.py``)
+- ``nerf.cuh``            the NeRF stage's march, primal and adjoint, one
+                          ray a call: the main path's form over the rays
+                          inside the box and the one-ray-per-thread form
+                          it replaced (wrapped by ``ops/nerf_step.py``)
 - ``volpath_primal.cu``, ``volpath_adjoint.cu``, ``volpath_drt.cu``,
   ``nerf.cu``: the ``__global__`` kernels and ``extern "C"`` launchers, one
   library each
+- ``l2_probe.cu``         random float4 gathers and atomics over a buffer:
+                          the L2 yardstick of the NeRF kernels, built and
+                          launched by ``chip_smoke.py`` only (not in LIBS)
 
 Each ``.cu`` is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 under ``build/uivr_tpu_torch/`` (keyed by a hash of the sources and flags);
@@ -77,7 +82,8 @@ LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_primal_direct": 0, "volpath_primal_state_direct": 0,
             "volpath_primal_k_direct": 0, "volpath_adjoint_direct": 0,
             "volpath_drt_walk_direct": 0, "volpath_drt_nee_direct": 0,
-            "nerf_primal": 0, "nerf_adjoint": 0}
+            "nerf_primal": 0, "nerf_adjoint": 0, "nerf_primal_direct": 0,
+            "nerf_adjoint_direct": 0}
 # K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
 # candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
 # events, of which classified, classified SHADOW events, sigma fetches
@@ -214,7 +220,8 @@ class NerfParams(ctypes.Structure):
     """Mirror of ``uivr::NerfParams`` in ``csrc/nerf.cuh``."""
     _fields_ = (
         [("P", PrimalParams)]
-        + [(f, ctypes.c_void_p) for f in ("valid", "L_in", "dL", "g_grid")]
+        + [(f, ctypes.c_void_p) for f in ("valid", "L_in", "dL", "g_grid", "order",
+                                          "listed", "atomics", "g_grid64")]
         + [(f, ctypes.c_int32) for f in (
             "steps", "jitter", "relu", "emission_scaled", "hide_emitters")])
 
@@ -231,7 +238,8 @@ _LAUNCHERS = {
     "adjoint": {"volpath_adjoint_launch": _PERSISTENT,
                 "volpath_adjoint_direct_launch": []},
     "drt": {"volpath_drt_launch": [ctypes.c_int, ctypes.c_int] + _PERSISTENT},
-    "nerf": {"nerf_primal_launch": [], "nerf_adjoint_launch": []},
+    "nerf": {"nerf_primal_launch": [], "nerf_adjoint_launch": [],
+             "nerf_primal_direct_launch": [], "nerf_adjoint_direct_launch": []},
 }
 _SIZES = {"primal": ("primal_params_size", PrimalParams),
           "adjoint": ("adj_params_size", AdjParams),
