@@ -198,6 +198,33 @@ so nothing is timed meanwhile):
    the kernel at K=4 and K=1 on the render's first chunk in turns, and the
    render CLI under UIVR_KCAND=4: every launch took K3b and K7, no twin
    ran, the image within 4 standard errors of the K=1 render's.
+9c. nested: the nested engine (``integrators/volpathsimple.py``, plain
+   PyTorch on the card, the ``volpathsimple-drt-quadratic`` preset).
+   unbiased: tiny-cube, max_depth 16, NEE on, tests/test_integrators.py's
+   16 fixed pixels x 2,048 rays, 6 seeds: the mean gradients of the
+   nested engine's three forms (basic, drt, drt-quadratic) and of the
+   kernels' ``volpathsimple-drt`` agree pairwise (median |difference| over
+   the scale of the basic mean below 0.03), and the nested primal's image
+   lies within 4 standard errors of the kernel's per channel.
+   card_vs_cpu: the nested primal on 2**14 random-pixel rays of janga's
+   truth grids at max_depth 8, on the card and on the CPU: the final
+   counters of the shared sampler, the lane agreement (phase 3's rule,
+   >= 0.90 where the counters are equal) and the channel means within 2%.
+   times (CUDA events and the host clock, with the wavefront iterations,
+   each ending in one host sync): the nested primal on janga's render
+   chunk (2**20 rays) at max_depth 64; the quadratic adjoint (with its
+   replay) on 524,288 random-pixel rays at max_depth 16, then 64 if the
+   time predicted from 16's (iterations grow with the depth squared) stays
+   within NESTED_BUDGET_S (8 if 16 does not fit); one ``run_optimization``
+   step of janga-smoke from the ground truth at 4,096 pixels x 4 spp
+   (primal factor 1) and max_depth 16 under the quadratic preset and under
+   ``volpathsimple-drt`` on the kernels; the cuts from the reference's
+   settings are listed as ``reduced``.  cli: ``reproduce --integrator
+   volpathsimple-drt-quadratic --retries 1`` on tiny-cube (20 iterations
+   at batch 256): one child without ``--retries``, exit 0, its initial and
+   final checkpoints and finite losses.  The cli child and half of
+   unbiased's seeds (in the twins' worker) run while the other half runs
+   here; card_vs_cpu and times run alone.
 10. kernels: every kernel of both paths at the shape the main path gives
    it, with its launches, time, plain version's time, bound and agreement;
    K6's row gives the walking kernels' times with K6 on and off at the
@@ -3219,6 +3246,340 @@ def phase_xml_chunk_quick(card, vs, dev, render_chunk):
         tmp.cleanup()
 
 
+NESTED_BUDGET_S = 120.0   # the quadratic adjoint at the largest depth that fits
+NESTED_DEPTHS = (16, 64)    # tried in turn while the predicted time fits; 8 if 16 does not
+
+
+def nested_seconds(fn):
+    """``fn()``'s result, its seconds on the host clock and from CUDA
+    events, and the wavefront iterations (host syncs) it ran."""
+    import torch
+    from uivr_tpu_torch.tracking.trackers import WAVEFRONT
+    torch.cuda.synchronize()
+    it0 = WAVEFRONT["iterations"]
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    host = time.perf_counter() - t0
+    iters = WAVEFRONT["iterations"] - it0
+    return out, {"host_s": host, "event_s": e0.elapsed_time(e1) / 1e3,
+                 "wavefront_iterations": iters,
+                 "ms_per_iteration": host * 1e3 / iters if iters else None}
+
+
+def fixed_cube_rays(b, dev, rep):
+    """tests/test_integrators.py's fixed rays: 16 pixels of sensor 0 in
+    the film's middle half, each ``rep`` times."""
+    import torch
+    from uivr_tpu_torch.scene.camera import sample_rays
+    xs, ys = np.meshgrid(np.arange(4), np.arange(4))
+    uv = (np.stack([xs.ravel(), ys.ravel()], -1) + 0.5) / 4.0 * 0.5 + 0.25
+    uv = torch.from_numpy(np.tile(uv, (rep, 1)).astype(np.float32)).to(dev)
+    return sample_rays(b.cameras, torch.zeros(uv.shape[0], dtype=torch.int64, device=dev), uv)
+
+
+NESTED_CONFIGS = {   # (a)'s estimators, all with NEE at max_depth 16
+    "basic": dict(use_drt=False, engine="nested"),
+    "drt": dict(engine="nested"),
+    "drt-quadratic": dict(use_drt_subsampling=False, engine="nested"),
+    "drt-kernel": dict(),
+}
+
+
+def nested_seed_runs(vs, sc, o, d, seeds):
+    """For each seed of (a): every NESTED_CONFIGS estimator's primal and
+    gradients from the same rays and seed (dL = 1 / (3 n)).  Returns
+    {name: [flat sigma_t and albedo gradients]}, the nested and kernel
+    images and each estimator's seconds, all on the host."""
+    import torch
+    from uivr_tpu_torch.core.rng import make_sampler
+    from uivr_tpu_torch.integrators import VolpathConfig, volpathsimple
+    n, dev = o.shape[0], o.device
+    dL = torch.full((n, 3), 1.0 / (n * 3), device=dev)
+    grads = {k: [] for k in NESTED_CONFIGS}
+    images = {"nested": [], "kernel": []}
+    secs = {k: 0.0 for k in NESTED_CONFIGS}
+    for seed in seeds:
+        for name, kw in NESTED_CONFIGS.items():
+            cfg = VolpathConfig(max_depth=16, **kw)
+            t0 = time.perf_counter()
+            if cfg.engine == "nested":
+                L, _, _ = volpathsimple.sample_primal(cfg, sc, o, d,
+                                                      make_sampler(seed, n_lanes=n, device=dev))
+                g, _ = volpathsimple.sample_adjoint(cfg, sc, o, d,
+                                                    make_sampler(seed, n_lanes=n, device=dev), dL, L)
+            else:
+                L, _ = vs.sample_primal_kernel(cfg, sc, o, d, seed)
+                g = vs.sample_adjoint_kernel(cfg, sc, o, d, seed, dL, L)
+            _sync()
+            secs[name] += time.perf_counter() - t0
+            grads[name].append(torch.cat([g.sigma_t.reshape(-1), g.albedo.reshape(-1)]).cpu()
+                               .double())
+            if name in ("basic", "drt-kernel"):
+                images["nested" if name == "basic" else "kernel"].append(L.cpu().double())
+    return grads, images, secs
+
+
+def _nested_seed_job(payload):
+    """In the worker: :func:`nested_seed_runs` on ``payload``."""
+    from uivr_tpu_torch.ops import volpath_step as vs
+    return _dumps(nested_seed_runs(vs, *_loads(payload)))
+
+
+def nested_unbiased(vs, cube, dev, seeds=6, rep=2048):
+    """(a): the gradients of the nested engine's three forms and of the
+    kernels' ``volpathsimple-drt`` on tiny-cube (max_depth 16, NEE on), their
+    means over ``seeds`` seeds agreeing pairwise, and the nested primal's
+    image against the kernel's per channel.  The worker runs the second
+    half of the seeds meanwhile: nothing here is timed but the seconds of
+    each estimator, which include the sharing."""
+    import torch
+    _, b, sc = cube
+    o, d = fixed_cube_rays(b, dev, rep)
+    n = o.shape[0]
+    all_seeds = [400 + 17 * s for s in range(seeds)]
+    half = (seeds + 1) // 2
+    fut = twin_pool().submit(_nested_seed_job, _dumps((sc, o, d, all_seeds[half:])))
+    grads, images, secs = nested_seed_runs(vs, sc, o, d, all_seeds[:half])
+    g2, i2, s2 = _loads(fut.result())
+    for k in grads:
+        grads[k] += g2[k]
+        secs[k] += s2[k]
+    for k in images:
+        images[k] += i2[k]
+    means = {k: torch.stack(v).mean(0) for k, v in grads.items()}
+    scale = means["basic"].abs().max().item()
+    pairs = {}
+    names = list(NESTED_CONFIGS)
+    for i, a in enumerate(names):
+        for bb in names[i + 1:]:
+            diff = (means[a] - means[bb]).abs() / scale
+            pairs[f"{a}/{bb}"] = {"median": diff.median().item(), "max": diff.max().item(),
+                                  "corr": float(np.corrcoef(means[a].numpy(),
+                                                            means[bb].numpy())[0, 1])}
+    La, Lb = torch.cat(images["nested"]), torch.cat(images["kernel"])
+    se = (La.var(0) / La.shape[0] + Lb.var(0) / Lb.shape[0]).sqrt()
+    z = ((La.mean(0) - Lb.mean(0)).abs() / se.clamp_min(1e-30)).tolist()
+    ok = all(p["median"] < 0.03 for p in pairs.values()) and max(z) <= 4.0
+    return {"rays": n, "fixed_pixels": 16, "repeats": rep, "seeds": seeds, "max_depth": 16,
+            "grad_pairs": pairs, "grad_scale": scale, "image_mean_nested": La.mean(0).tolist(),
+            "image_mean_kernel": Lb.mean(0).tolist(), "image_z": z,
+            "seconds_shared": secs, "ok": ok}
+
+
+def nested_card_vs_cpu(janga, rays, dev):
+    """(b): the nested primal of janga-smoke's truth grids on the card and
+    on the CPU, the same code on the same 2^14 rays at max_depth 8; the
+    card's run once more under the profiler (``utils/profiling``): its
+    device events (kernels and copies) per wavefront iteration, the
+    device's idle share and the host calls that waited for it."""
+    from uivr_tpu_torch.config import get_scene_config
+    from uivr_tpu_torch.core.rng import make_sampler
+    from uivr_tpu_torch.integrators import VolpathConfig, volpathsimple
+    from uivr_tpu_torch.scene.medium import finalize_medium
+    from uivr_tpu_torch.scene.scene import Scene
+    from uivr_tpu_torch.utils import profiling
+    preset, b, sc = janga
+    o, d = rays
+    n = o.shape[0]
+    cfg = VolpathConfig(max_depth=8, engine="nested")
+    (Lc, _, sc_), times = nested_seconds(lambda: volpathsimple.sample_primal(
+        cfg, sc, o, d, make_sampler(42, n_lanes=n, device=dev)))
+    with profiling.trace() as prof:
+        _, traced = nested_seconds(lambda: volpathsimple.sample_primal(
+            cfg, sc, o, d, make_sampler(42, n_lanes=n, device=dev)))
+    summary = profiling.device_summary(prof, top=5, n_gaps=3)
+    iters = traced["wavefront_iterations"]
+    traced.update(device_events=summary["device_events"],
+                  device_events_per_iteration=summary["device_events"] / max(iters, 1),
+                  top_kernels=[dict(k_, name=k_["name"][:80]) for k_ in summary["top_kernels"]],
+                  **{k: summary[k] for k in ("window_ms", "busy_ms", "idle_share", "syncs")})
+    bc = preset.build(device="cpu")
+    scpu = Scene(finalize_medium(bc.params, bc.medium_cfg, bc.to_world), bc.emitter, bc.cameras)
+    t0 = time.perf_counter()
+    Lp, _, sp = volpathsimple.sample_primal(cfg, scpu, o.cpu(), d.cpu(),
+                                            make_sampler(42, n_lanes=n))
+    cpu_s = time.perf_counter() - t0
+    Lc = Lc.cpu()
+    agree = lane_agreement(Lc, Lp)
+    mc, mp = Lc.mean(0).tolist(), Lp.mean(0).tolist()
+    means_ok = all(abs(a - b_) <= 0.02 * abs(b_) for a, b_ in zip(mc, mp))
+    ok = means_ok and (sc_.dim != sp.dim or agree >= 0.90)
+    return {"rays": n, "max_depth": 8, "seed": 42, "dim_cuda": sc_.dim, "dim_cpu": sp.dim,
+            "agreement": agree, "mean_cuda": mc, "mean_cpu": mp, "card": times,
+            "card_traced": traced, "cpu_s": cpu_s, "ok": ok}
+
+
+def nested_times(vs, janga, dev, render_chunk, random_pixel_rays, out_dir):
+    """(c): the nested primal at one pass of the main path's width, the
+    quadratic adjoint at the step's adjoint width at the largest depth of
+    NESTED_DEPTHS whose predicted time fits NESTED_BUDGET_S, and one
+    ``run_optimization`` step of the quadratic preset beside the same step
+    of ``volpathsimple-drt`` on the kernels."""
+    import torch
+    from uivr_tpu_torch.config import get_int_config
+    from uivr_tpu_torch.core.rng import make_sampler
+    from uivr_tpu_torch.integrators import VolpathConfig, volpathsimple
+    from uivr_tpu_torch.opt import OptimizationConfig, load_references, loop
+    preset, b, sc = janga
+    rec = {}
+    o, d = render_chunk(b)
+    n = o.shape[0]
+    cfg = VolpathConfig(max_depth=64, engine="nested")
+    (L, _, s), t = nested_seconds(lambda: volpathsimple.sample_primal(
+        cfg, sc, o, d, make_sampler(1234, n_lanes=n, device=dev)))
+    rec["primal"] = {"rays": n, "max_depth": 64, "dim": s.dim, **t,
+                     "finite": bool(torch.isfinite(L).all()), "mean": L.mean(0).tolist()}
+    # the quadratic adjoint, replaying its own primal
+    o, d = random_pixel_rays(b, 524288)
+    n = o.shape[0]
+    dL = torch.rand((n, 3), generator=torch.Generator(device=dev).manual_seed(5),
+                    device=dev) / n
+    runs = []
+
+    def quadratic(depth):
+        q = VolpathConfig(max_depth=depth, use_drt_subsampling=False, engine="nested")
+        (L, _, _), tp = nested_seconds(lambda: volpathsimple.sample_primal(
+            q, sc, o, d, make_sampler(77, n_lanes=n, device=dev)))
+        (g, _), ta = nested_seconds(lambda: volpathsimple.sample_adjoint(
+            q, sc, o, d, make_sampler(77, n_lanes=n, device=dev), dL, L))
+        runs.append({"max_depth": depth, "replay": tp, "adjoint": ta,
+                     "grads_finite": bool(torch.isfinite(g.sigma_t).all()
+                                          and torch.isfinite(g.albedo).all()),
+                     "grads_nonzero": bool(g.sigma_t.abs().sum() > 0)})
+        return tp["host_s"] + ta["host_s"]
+    for i, depth in enumerate(NESTED_DEPTHS):
+        s_ = quadratic(depth)
+        if s_ > NESTED_BUDGET_S:
+            if i == 0:
+                quadratic(8)
+            break
+        if i + 1 < len(NESTED_DEPTHS):
+            # iterations grow with the depth squared: a recursive path at every bounce
+            runs[-1]["predicted_next_s"] = s_ * (NESTED_DEPTHS[i + 1] / depth) ** 2
+            if runs[-1]["predicted_next_s"] > NESTED_BUDGET_S:
+                break
+    done = [r_ for r_ in runs
+            if r_["replay"]["host_s"] + r_["adjoint"]["host_s"] <= NESTED_BUDGET_S]
+    rec["quadratic_adjoint"] = {"rays": n, "runs": runs, "budget_s": NESTED_BUDGET_S,
+                                "largest_depth_within_budget":
+                                    max(r_["max_depth"] for r_ in done) if done else None}
+    # one step of each preset at 4,096 pixels x 4 spp, max_depth 16
+    refs = load_references(str(out_dir / preset.name / "references"), b)
+    steps = {}
+    for name in ("volpathsimple-drt-quadratic", "volpathsimple-drt"):
+        icfg = get_int_config(name).create(max_depth=16)
+        opt = OptimizationConfig(name=f"{preset.name}/{name}", n_iter=1, spp=4,
+                                 primal_spp_factor=1, batch_size=4096, upsample=None,
+                                 preview_stride=0, checkpoint_stride=0,
+                                 checkpoint_initial=False, checkpoint_final=False,
+                                 render_initial=False, render_final=False)
+        calls = dict(volpathsimple.CALLS)
+        _, t = nested_seconds(lambda: loop.run_optimization(
+            str(out_dir / "nested" / name), opt, b, icfg, ref_images=refs,
+            start_params=b.params, resume=False, verbose=False))
+        steps[name] = {**t, "nested_calls": {k: volpathsimple.CALLS[k] - calls[k]
+                                             for k in calls}}
+    rec["step"] = {"pixels": 4096, "spp": 4, "primal_spp_factor": 1, "max_depth": 16,
+                   "from": "ground truth", **steps}
+    return rec
+
+
+def nested_cli(out_dir):
+    """(d): ``reproduce --integrator volpathsimple-drt-quadratic --retries 1``
+    on tiny-cube: one child, exit 0, checkpoints and finite losses."""
+    import json as json_
+    from uivr_tpu_torch.cli import reproduce
+    outputs = out_dir / "cli"
+    stage = outputs / "tiny-cube" / "volpathsimple-drt-quadratic"
+    if stage.exists():
+        import shutil
+        shutil.rmtree(stage)
+    children = []
+    call = reproduce.subprocess.call
+
+    def counted(child):
+        children.append(list(child))
+        return call(child)
+    reproduce.subprocess.call = counted
+    t0 = time.perf_counter()
+    try:
+        reproduce.main(["--config", "tiny-cube", "--integrator", "volpathsimple-drt-quadratic",
+                        "--scale", "0.01", "--ref-spp", "16", "--outputs", str(outputs),
+                        "--retries", "1"])
+        code = None
+    except SystemExit as e:
+        code = e.code
+    finally:
+        reproduce.subprocess.call = call
+    dt = time.perf_counter() - t0
+    losses = []
+    if (stage / "metrics.jsonl").exists():
+        with open(stage / "metrics.jsonl") as f:
+            losses = [r["loss"] for r in map(json_.loads, f) if "loss" in r]
+    ckpts = sorted(p.name for p in (stage / "params").glob("*.vol")) \
+        if (stage / "params").exists() else []
+    ok = (code == 0 and len(children) == 1 and "--retries" not in children[0]
+          and children[0][1:3] == ["-m", "uivr_tpu_torch.cli.reproduce"] and losses
+          and all(math.isfinite(x) for x in losses)
+          and "final-medium1_sigma_t.vol" in ckpts and "initial-medium1_sigma_t.vol" in ckpts)
+    return {"command": "reproduce --config tiny-cube --integrator volpathsimple-drt-quadratic "
+                       "--scale 0.01 --ref-spp 16 --retries 1",
+            "exit_code": code, "attempts": len(children), "child": children[:1], "seconds": dt,
+            "losses": losses, "checkpoints": ckpts, "ok": bool(ok)}
+
+
+def phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel_rays):
+    """9c: the nested engine on the card (see the module docstring)."""
+    import torch
+    from uivr_tpu_torch.integrators import volpathsimple
+    import threading
+    t0 = time.perf_counter()
+    calls = dict(volpathsimple.CALLS)
+    # (d) runs its child process while (a) runs here and in the worker;
+    # (b) and (c) then run alone
+    cli = {}
+
+    def run_cli():
+        try:
+            cli.update(nested_cli(out_dir))
+        except Exception:
+            cli.update(ok=False, error=traceback.format_exc().splitlines()[-1])
+    cli_thread = threading.Thread(target=run_cli)
+    cli_thread.start()
+    unbiased = nested_unbiased(vs, cube, dev)
+    cli_thread.join()
+    twins = nested_card_vs_cpu(janga, random_pixel_rays(janga[1], 1 << 14), dev)
+    times = nested_times(vs, janga, dev, render_chunk, random_pixel_rays, out_dir)
+    depth = times["quadratic_adjoint"]["largest_depth_within_budget"]
+    reduced = {"batch": "4,096 pixels (32,768)", "spp": "4 primal x 4 adjoint (1,024 x 16)",
+               "max_depth": f"16 in the step; the quadratic adjoint at {depth} (64)",
+               "iterations": "1 (6000)"}
+    rec = {"phase": "nested", "unbiased": unbiased, "card_vs_cpu": twins, "times": times,
+           "cli": cli, "reduced": reduced,
+           "nested_calls": {k: volpathsimple.CALLS[k] - calls[k] for k in calls},
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(rec)
+    fails = [k for k, v in (("unbiased", unbiased), ("card_vs_cpu", twins), ("cli", cli))
+             if not v.get("ok")]
+    if depth is None:
+        fails.append("the quadratic adjoint took longer than NESTED_BUDGET_S at every depth")
+    if not times["primal"]["finite"] or not all(r["grads_finite"] and r["grads_nonzero"]
+                                                 for r in times["quadratic_adjoint"]["runs"]):
+        fails.append("times")
+    step = times["step"]
+    if (step["volpathsimple-drt-quadratic"]["nested_calls"]["sample_adjoint"] < 1
+            or any(step["volpathsimple-drt"]["nested_calls"].values())):
+        fails.append("step: the quadratic preset did not run the nested engine, or the "
+                     "kernels' preset did")
+    if fails:
+        raise RuntimeError(f"nested: checks failed: {fails}")
+    return rec
+
+
 def main(argv=None):
     """``--quick``: the builds, then the persistent kernels against the
     one-ray-per-thread ones at the main path's shapes (lanes equal, the
@@ -3584,6 +3945,7 @@ def main(argv=None):
     phase_fd(card, vs, out_dir)
     nerf_rows = phase_nerf(card, vs, probe_lib, janga, dust, out_dir)
     k3b, xml = phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk, more_ab)
+    phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel_rays)
     for k in kernels:
         k["launches_per_train_step"] = train["iterations"][0]["launches"].get(k["name"], 0)
     kernels += training_kernels(train, truth, check)

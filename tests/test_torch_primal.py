@@ -32,7 +32,8 @@ from torch_common import one_torch_thread  # noqa: F401  (autouse: one torch thr
 from uivr_tpu.config import cube_test_scene, smoke_scene
 from uivr_tpu.integrators import VolpathConfig as JCfg
 from uivr_tpu.integrators import volpath_flat as jflat
-from uivr_tpu_torch.integrators import VolpathConfig, volpath_flat
+from uivr_tpu_torch.core.rng import make_sampler
+from uivr_tpu_torch.integrators import VolpathConfig, volpath_flat, volpathsimple
 from uivr_tpu_torch.ops import volpath_step
 from uivr_tpu_torch.render import batched
 
@@ -133,7 +134,7 @@ def test_kernel_wrapper_on_cpu_is_the_plain_twin(scenes, twin):
     assert torch.equal(st["steps"], twin["cube-nee"][2]["steps"])
 
 
-def test_step_bound_and_engine_resolution(scenes):
+def test_step_bound_and_engine_resolution(scenes, monkeypatch):
     _, tsc, _, (o, d) = scenes["smoke"]
     cfg = VolpathConfig(max_depth=8, max_steps=7)
     L, _, st = volpath_flat.sample_primal(cfg, tsc, o, d, SEED, return_stats=True)
@@ -141,5 +142,13 @@ def test_step_bound_and_engine_resolution(scenes):
     assert batched._resolve_engine(VolpathConfig(), o) == "flat"
     assert batched._resolve_engine(VolpathConfig(engine="pallas"), o) == "flat"
     assert batched._resolve_engine(VolpathConfig(engine="flat"), o) == "flat"
-    with pytest.raises(NotImplementedError):
-        batched._resolve_engine(VolpathConfig(engine="nested"), o)
+    assert batched._resolve_engine(VolpathConfig(engine="nested"), o) == "nested"
+    # the nested engine's forward ignores UIVR_KCAND, as the reference's does
+    monkeypatch.setenv("UIVR_KCAND", "4")
+    nested = VolpathConfig(max_depth=2, engine="nested")
+    calls = dict(volpath_flat.CALLS)
+    L, esc = batched._dispatch_primal(nested, tsc, o[:64], d[:64], SEED)
+    assert volpath_flat.CALLS == calls
+    Ln, escn, _ = volpathsimple.sample_primal(nested, tsc, o[:64], d[:64],
+                                              make_sampler(SEED, n_lanes=64))
+    assert torch.equal(L, Ln) and torch.equal(esc, escn)

@@ -12,12 +12,15 @@
   gradient of the reference's jitted step, which is ``jax.value_and_grad``
   through its ``make_render`` (the gradient read back from Adam's first
   moment, ``mu = (1 - beta1) g`` from a zero state), so both tests share
-  one reference compile.
+  one reference compile;
+- the backward split into spp chunks (``max_rays_per_pass``) against the
+  reference's chunked backward on the first step's batch.
 
 The integrator of the last two is the free-flight estimator with shadow
 Russian roulette (``use_drt=False``, ``shadow_rr=0.1``): the DRT adjoint
 is held against the reference in tests/test_torch_adjoint.py.
 """
+import dataclasses
 import json
 import os
 
@@ -234,3 +237,40 @@ def test_render_op_backward_matches_jax(runs):
         assert np.abs(a).sum() > 0
         assert np.abs(a - b).sum() / np.abs(a).sum() < 0.05, k
     assert not leaves.emission.grad.any()
+
+
+def test_backward_spp_chunks_match_jax(runs):
+    """The backward split into spp chunks (above ``max_rays_per_pass``
+    adjoint rays; seeds 2000+c for the subpixel offsets, 9090+c for the
+    paths): gradients of sum(g_img * image) against the reference's
+    chunked backward, on the first step's batch; unchunked they differ."""
+    from uivr_tpu.render import RenderSettings as JSettings
+    from uivr_tpu.render import make_render as j_make_render
+    from uivr_tpu_torch.render import batched
+    tb, c = runs["tb"], runs["calls"]["jax"][0]
+    jb = cube_test_scene(resx=16, resy=16)
+    g_img = np.random.RandomState(11).rand(64, 3).astype(np.float32)
+    js = JSettings(integrator=JCfg(**BASIC), medium=jb.medium_cfg, film_size=jb.film_size,
+                   spp=RUN["spp"] * RUN["primal_spp_factor"], spp_grad=RUN["spp"],
+                   max_rays_per_pass=64)
+    render = j_make_render(js, jb.to_world)
+    sidx, pix = jnp.asarray(c["sensor_idx"], jnp.int32), jnp.asarray(c["pixels"], jnp.int32)
+    seed, seed_grad = c["seeds"]
+    gj = jax.jit(jax.grad(lambda p: jnp.sum(render(
+        p, jb.emitter, jb.cameras, sidx, pix, jnp.uint32(seed), jnp.uint32(seed_grad))
+        * jnp.asarray(g_img))))(jb.start_from)
+    ts = RenderSettings(integrator=VolpathConfig(**BASIC), medium=tb.medium_cfg,
+                        film_size=tb.film_size, spp=RUN["spp"] * RUN["primal_spp_factor"],
+                        spp_grad=RUN["spp"], max_rays_per_pass=64)
+    grads = {}
+    for name, st in (("chunked", ts), ("whole", dataclasses.replace(ts, max_rays_per_pass=1 << 20))):
+        sc = batched._scene(st, tb.start_from, tb.emitter, tb.cameras, tb.to_world)
+        grads[name] = batched.render_backward(st, sc, tb.cameras, torch.from_numpy(c["sensor_idx"]),
+                                              torch.from_numpy(c["pixels"]), seed_grad,
+                                              torch.from_numpy(g_img))
+    for k in ("sigma_t", "albedo"):
+        a, b = np.asarray(getattr(gj, k)), getattr(grads["chunked"], k).numpy()
+        assert np.abs(a).sum() > 0
+        assert np.abs(a - b).sum() / np.abs(a).sum() < 0.05, k
+        w = getattr(grads["whole"], k).numpy()
+        assert np.abs(a - w).sum() / np.abs(a).sum() > 0.1, k

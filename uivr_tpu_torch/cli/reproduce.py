@@ -10,12 +10,18 @@ then ``volpathsimple-drt``; a ``*-from-nerf`` scene starts from the final
 checkpoint of its base scene's ``nerf`` stage.  ``--scale`` shrinks
 iteration counts and the batch for smoke runs.  Completed stages (final
 checkpoint present) are skipped.  Runs on the GPU unless ``--device cpu``
-selects the plain PyTorch path.  Not ported yet: ``--mesh`` (data parallel)
-and ``--retries``.
+selects the plain PyTorch path.  ``--retries N`` supervises the run: it
+runs the same command without ``--retries`` in a child process and, while
+the child fails, runs it again (at most N more times, 30 s apart), each
+attempt skipping the finished stages and resuming the others from their
+latest full-state checkpoint.  Not ported yet: ``--mesh`` (data parallel).
 """
 from __future__ import annotations
 
 import argparse
+import subprocess
+import sys
+import time
 from dataclasses import replace
 from os.path import isfile, join
 
@@ -86,7 +92,9 @@ def main(argv=None):
                     help="accepted for the reference's interface; the port "
                          "runs the host loop, with identical seeds and pixels")
     ap.add_argument("--retries", type=int, default=0,
-                    help="re-exec and resume after failures (not ported yet)")
+                    help="run in a child process and, after a failure, run it "
+                         "again up to N times, resuming from the latest "
+                         "full-state checkpoint")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda, which must exist)")
     args = ap.parse_args(argv)
@@ -94,7 +102,7 @@ def main(argv=None):
     if args.mesh > 0:
         raise NotImplementedError("--mesh (data-parallel training): later slice")
     if args.retries > 0:
-        raise NotImplementedError("--retries: later slice")
+        sys.exit(_supervise(argv if argv is not None else sys.argv[1:], args.retries))
     device = resolve_device(args.device)
 
     scene_preset = get_scene_config(args.config)
@@ -131,6 +139,29 @@ def main(argv=None):
             spp=ref_spp,
             sensors=list(ref_bundle.sensors) if ref_bundle.sensors else None)
     _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device)
+
+
+def _supervise(argv, retries: int) -> int:
+    """Run this command without ``--retries`` in a child process, up to
+    ``retries + 1`` times until one exits 0; returns the last exit code.
+    Completed stages skip through their final checkpoints, and a stage cut
+    short resumes from its latest full-state checkpoint."""
+    child = [sys.executable, "-m", "uivr_tpu_torch.cli.reproduce"]
+    it = iter(argv)
+    for a in it:
+        if a == "--retries":
+            next(it, None)
+        elif not a.startswith("--retries="):
+            child.append(a)
+    rc = 1
+    for attempt in range(retries + 1):
+        if attempt:
+            print(f"[retry] attempt {attempt + 1}/{retries + 1}", flush=True)
+            time.sleep(30)
+        rc = subprocess.call(child)
+        if rc == 0:
+            break
+    return rc
 
 
 def _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device):

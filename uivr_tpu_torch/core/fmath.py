@@ -21,6 +21,8 @@ between two float32 values.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -37,8 +39,19 @@ def ray_point(o: torch.Tensor, t: torch.Tensor, d: torch.Tensor,
               fused=(True, True, False)) -> torch.Tensor:
     """``o + t[:, None] * d`` for (n, 3) ``o``, ``d`` and (n,) ``t``, with
     component i fused when ``fused[i]``."""
-    return torch.stack([fma(t, d[:, i], o[:, i]) if f else o[:, i] + t * d[:, i]
-                        for i, f in enumerate(fused)], dim=1)
+    fused = tuple(bool(f) for f in fused)
+    if not any(fused):
+        return o + t[:, None] * d
+    p = fma(t[:, None], d, o)
+    if all(fused):
+        return p
+    return torch.where(_component_mask(fused, p.device), p, o + t[:, None] * d)
+
+
+@functools.lru_cache(maxsize=None)
+def _component_mask(fused, device) -> torch.Tensor:
+    """(3,) bool of ``fused`` on ``device``, made once."""
+    return torch.tensor(fused, device=device)
 
 
 def sqrt(x: torch.Tensor) -> torch.Tensor:

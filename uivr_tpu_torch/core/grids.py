@@ -9,42 +9,44 @@ CUDA kernel reads the 8 corners of one interleaved (D, H, W, 4) grid.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from .fmath import fma
+
+@functools.lru_cache(maxsize=None)
+def _cell_res(shape: Tuple[int, int, int], dtype, device):
+    """Per-axis constants of a (D, H, W) grid's trilinear lookup, made
+    once per grid shape and device (a copy from the host would wait for
+    the device at every lookup): ``res`` (W-1, H-1, D-1), ``res - 1`` and
+    ``res`` clamped at 0, ``res > 0``."""
+    D, H, W = shape
+    res = torch.tensor([W - 1, H - 1, D - 1], dtype=dtype, device=device)
+    return (res, torch.clamp(res - 1.0, min=0.0), torch.clamp(res, min=0.0).to(torch.int64),
+            res > 0)
 
 
 def _corner_indices_weights(shape: Tuple[int, ...], p: torch.Tensor):
-    """Flat node indices (n, 8) int64 and weights, as a list of eight (n,)
-    tensors, for trilinear interpolation at points ``p`` (n, 3)."""
+    """Flat node indices (n, 8) int64 and weights (n, 8) for trilinear
+    interpolation at points ``p`` (n, 3).  Corner k takes the upper node
+    on z, y, x where bits 2, 1, 0 of k are set; its weight is
+    ``(wz * wy) * wx``."""
     D, H, W = int(shape[0]), int(shape[1]), int(shape[2])
-    res = torch.tensor([W - 1, H - 1, D - 1], dtype=p.dtype, device=p.device)
+    res, top, top_i, pos = _cell_res((D, H, W), p.dtype, p.device)
     x = torch.clamp(p, 0.0, 1.0) * res
-    i0 = torch.minimum(torch.clamp(torch.floor(x), min=0.0),
-                       torch.clamp(res - 1.0, min=0.0))
-    f = torch.where(res > 0, x - i0, 0.0)
+    i0 = torch.minimum(torch.clamp(torch.floor(x), min=0.0), top)
+    f = torch.where(pos, x - i0, 0.0)
     i0 = i0.to(torch.int64)
-    i1 = torch.minimum(i0 + 1, torch.clamp(res, min=0.0).to(torch.int64))
-    ix0, iy0, iz0 = i0.unbind(-1)
-    ix1, iy1, iz1 = i1.unbind(-1)
-    fx, fy, fz = f.unbind(-1)
-    gx, gy, gz = 1.0 - fx, 1.0 - fy, 1.0 - fz
-
-    def flat(iz, iy, ix):
-        return (iz * H + iy) * W + ix
-
-    idx = torch.stack([
-        flat(iz0, iy0, ix0), flat(iz0, iy0, ix1),
-        flat(iz0, iy1, ix0), flat(iz0, iy1, ix1),
-        flat(iz1, iy0, ix0), flat(iz1, iy0, ix1),
-        flat(iz1, iy1, ix0), flat(iz1, iy1, ix1),
-    ], dim=-1)
-    w = [gz * gy * gx, gz * gy * fx, gz * fy * gx, gz * fy * fx,
-         fz * gy * gx, fz * gy * fx, fz * fy * gx, fz * fy * fx]
-    return idx, w
+    i = torch.stack([i0, torch.minimum(i0 + 1, top_i)], dim=-1)    # (n, 3, 2)
+    wt = torch.stack([1.0 - f, f], dim=-1)                         # (n, 3, 2)
+    # corner k: z from bit 2, y from bit 1, x from bit 0
+    iz, iy, ix = i[:, 2].repeat_interleave(4, 1), i[:, 1].repeat_interleave(2, 1).repeat(1, 2), \
+        i[:, 0].repeat(1, 4)
+    wz, wy, wx = wt[:, 2].repeat_interleave(4, 1), wt[:, 1].repeat_interleave(2, 1).repeat(1, 2), \
+        wt[:, 0].repeat(1, 4)
+    return (iz * H + iy) * W + ix, (wz * wy) * wx
 
 
 def trilinear_sample(data: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -54,9 +56,12 @@ def trilinear_sample(data: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     C = data.shape[-1]
     idx, w = _corner_indices_weights(data.shape, p)
     vals = data.reshape(-1, C)[idx]          # (n, 8, C)
-    out = vals[:, 0] * w[0][:, None]
+    out = vals[:, 0] * w[:, :1]
+    # fma(vals_k, w_k, out): the float64 product of float32 values is
+    # exact, and the sum is rounded to float32 once (core/fmath.fma)
+    prod = vals.to(torch.float64) * w.to(torch.float64)[..., None]
     for k in range(1, 8):
-        out = fma(vals[:, k], w[k][:, None], out)
+        out = (prod[:, k] + out.to(torch.float64)).to(torch.float32)
     return out
 
 
@@ -70,7 +75,6 @@ def trilinear_scatter(grad_acc: torch.Tensor, p: torch.Tensor,
     and returns it (the adjoint's accumulators are private to it)."""
     C = grad_acc.shape[-1]
     idx, w = _corner_indices_weights(grad_acc.shape, p.to(grad_acc.dtype))
-    w = torch.stack(w, dim=-1)
     if mask is not None:
         w = w * mask.to(w.dtype)[:, None]
     contrib = w[..., None] * cot[:, None, :]            # (n, 8, C)

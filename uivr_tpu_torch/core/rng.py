@@ -119,6 +119,20 @@ def next_2d(s: Sampler) -> Tuple[torch.Tensor, Sampler]:
     return torch.stack([u0, u1], dim=-1), s
 
 
+def fork(s: Sampler, salt) -> Sampler:
+    """A decorrelated sampler over the same lanes, its counter at 0: the
+    seed becomes the 6-round TEA of (seed, salt).  The adjoint's alt stream,
+    so the primary stream stays that of the primal pass."""
+    new_seed, _ = tea_plain(s.seed, salt)
+    return Sampler(seed=new_seed, dim=0, lanes=s.lanes)
+
+
+def clone(s: Sampler) -> Sampler:
+    """A sampler that replays the same upcoming draws (a copy: the sampler
+    holds no state beyond its seed and counter)."""
+    return Sampler(seed=s.seed, dim=s.dim, lanes=s.lanes)
+
+
 class LaneSampler(NamedTuple):
     """Per-lane-counter sampler of the flat tracking loop."""
     h: torch.Tensor    # (n,) hashed (seed, lane)

@@ -5,7 +5,10 @@ camera rays, the engine dispatch, the full-frame ``render_image`` and the
 differentiable batch render of :func:`make_render`, whose backward (a
 ``torch.autograd.Function``) re-samples decorrelated adjoint rays through
 the same pixels, replays their primal detached and runs the path-replay
-adjoint.  Seeds are TEA-derived per purpose exactly as in the reference
+adjoint.  The volumetric path tracer runs on the CUDA kernels (cuda
+tensors), their plain twin (cpu tensors, or ``engine="flat"``) or the
+nested engine (``engine="nested"``, the ``volpathsimple-drt-quadratic``
+preset).  Seeds are TEA-derived per purpose exactly as in the reference
 (pixel sampler ``tea(seed, 5)``, primal subpixel sampler ``tea(seed, 22)``,
 adjoint subpixel sampler ``tea(seed_grad, 39)``), so both packages trace
 the same rays and paths.  The integrator is either config of the
@@ -25,7 +28,7 @@ import torch
 
 from ..core.device import resolve_device
 from ..core.rng import make_sampler, next_2d, sample_tea_32
-from ..integrators import volpath_flat
+from ..integrators import volpath_flat, volpathsimple
 from ..integrators.nerf import NerfConfig
 from ..integrators.volpathsimple import VolpathConfig
 from ..ops import nerf_step, volpath_step
@@ -106,27 +109,30 @@ def resolve_k_cand(k_cand: Optional[int] = None) -> int:
 
 def _resolve_engine(cfg, o: torch.Tensor) -> str:
     """'auto' and 'pallas' -> the CUDA kernel on cuda tensors, the plain twin
-    on cpu tensors; 'flat' -> the plain twin on any device."""
+    on cpu tensors; 'flat' -> the plain twin and 'nested' -> the nested
+    engine (``integrators/volpathsimple.py``), on the tensors' device."""
     e = getattr(cfg, "engine", "auto")
     if e in ("auto", "pallas"):
         return "kernel" if o.is_cuda else "flat"
-    if e == "flat":
-        return "flat"
-    if e == "nested":
-        raise NotImplementedError("the nested engine is not ported")
+    if e in ("flat", "nested"):
+        return e
     raise ValueError(f"unknown engine {e!r}")
 
 
 def _dispatch_primal(cfg: IntegratorConfig, scene: Scene, o, d, seed, k_cand=None):
     """``k_cand``: K-candidate batching of the kernel engine, None reading
-    ``UIVR_KCAND``; the backward's replay passes 1.  The flat engine ignores
-    it, as the reference's does; on cpu tensors the K twin stands in for the
-    kernel (``sample_primal_kernel`` there).  NeRF ignores it: its march
-    runs ``nerf_primal_kernel`` on cuda tensors, the plain version on cpu
-    tensors."""
+    ``UIVR_KCAND``; the backward's replay passes 1.  The flat and nested
+    engines ignore it, as the reference's do; on cpu tensors the K twin
+    stands in for the kernel (``sample_primal_kernel`` there).  NeRF
+    ignores it: its march runs ``nerf_primal_kernel`` on cuda tensors, the
+    plain version on cpu tensors."""
     if isinstance(cfg, NerfConfig):
         return nerf_step.sample_primal_kernel(cfg, scene, o, d, seed)
     engine = _resolve_engine(cfg, o)
+    if engine == "nested":
+        L, valid, _ = volpathsimple.sample_primal(
+            cfg, scene, o, d, make_sampler(seed, n_lanes=o.shape[0], device=o.device))
+        return L, valid
     k = 1 if getattr(cfg, "engine", "auto") == "flat" else resolve_k_cand(k_cand)
     if engine == "kernel" or k > 1:
         return volpath_step.sample_primal_kernel(cfg, scene, o, d, seed, k_cand=k)
@@ -136,8 +142,13 @@ def _dispatch_primal(cfg: IntegratorConfig, scene: Scene, o, d, seed, k_cand=Non
 def _dispatch_adjoint(cfg: IntegratorConfig, scene: Scene, o, d, seed, dL, L):
     if isinstance(cfg, NerfConfig):
         return nerf_step.sample_adjoint_kernel(cfg, scene, o, d, seed, dL, L)
-    if _resolve_engine(cfg, o) == "kernel":
+    engine = _resolve_engine(cfg, o)
+    if engine == "kernel":
         return volpath_step.sample_adjoint_kernel(cfg, scene, o, d, seed, dL, L)
+    if engine == "nested":
+        g, _ = volpathsimple.sample_adjoint(
+            cfg, scene, o, d, make_sampler(seed, n_lanes=o.shape[0], device=o.device), dL, L)
+        return g
     return volpath_flat.sample_adjoint(cfg, scene, o, d, seed, dL, L)
 
 

@@ -68,6 +68,14 @@ def scatter_sigma(acc: GradAccum, m: Medium, p: torch.Tensor,
     return acc
 
 
+def scatter_albedo(acc: GradAccum, m: Medium, p: torch.Tensor,
+                   cot: torch.Tensor, mask: torch.Tensor) -> GradAccum:
+    """Accumulate a cotangent on albedo(p) (n, 3)."""
+    idx = torch.nonzero(mask).flatten()
+    trilinear_scatter(acc.albedo, p[idx], cot[idx])
+    return acc
+
+
 def scatter_emission(acc: GradAccum, m: Medium, p: torch.Tensor,
                      cot: torch.Tensor, mask: torch.Tensor,
                      scaled: bool = True) -> GradAccum:

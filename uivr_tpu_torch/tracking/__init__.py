@@ -1,1 +1,1 @@
-from .trackers import drt_distance, transmittance  # noqa: F401
+from .trackers import drt_distance, free_flight, transmittance  # noqa: F401
