@@ -18,12 +18,14 @@ run only here, through the wrappers' ``direct=True``, as the A/B baseline
 and the bit-for-bit reference on the card.  The plain twins of phases 3, 6
 and 9b run after their phase's times are taken, two at a time: every
 other one in a worker process (``run_twins``; the worker shares the card,
-so nothing is timed meanwhile):
+so nothing is timed meanwhile); those of phase 8 wait for phase 9c, which
+runs them in TWIN_WORKERS worker processes at once (``check_step``):
 
 1. device: the card (``nvidia-smi`` name and power limit on a line of its
    own), torch and CUDA versions, and the kernels' nvcc builds (one nvcc
    per source, started together, with the ``--fmad=true`` primal) with
-   ptxas' registers and spills; with
+   ptxas' registers and spills, and the native host helpers' g++ build
+   (``uivr_tpu_torch/native``); with
    ``--sweep`` also the variants of the persistent kernels
    (PERSIST_VARIANTS: the minimum-blocks bound of ``__launch_bounds__`` at
    3 to 6 beside the package's own, PACKAGE_MIN_BLOCKS).
@@ -129,10 +131,13 @@ so nothing is timed meanwhile):
    and found equal on >= 0.90 of lanes, gradients' relative L1 <= 1e-2;
    and on the same reservoirs phase 5a's ``drt_turns`` and
    ``drt_walk_causes`` (both walks on the vertices in order, shuffled, and
-   one per lane: ns per warp iteration; timed before the worker starts).  The adjoint slice's
-   twin runs in a worker process beside the other two (``submit_twin``),
-   and every twin runs under ``torch.inference_mode``
-   (``twins_without_autograd``): the same ops, less host time per op.
+   one per lane: ns per warp iteration; timed at once).  The rest of
+   each check, and so its records, comes in phase 9c: the three twins
+   (the adjoint slice's replay primal and walk, the DRT term) in worker
+   processes (``submit_check``), the DRT kernel in this process
+   (``finish_check``), beside 9c's untimed work.  Every twin runs under
+   ``torch.inference_mode`` (``twins_without_autograd``): the same ops,
+   less host time per op.
 9. cli: ``uivr_tpu_torch.cli.reproduce`` on tiny-cube with its default
    stages, ``nerf`` then ``volpathsimple-drt`` (20 iterations at batch 557
    each); each stage's metrics.jsonl must hold losses and its final
@@ -222,9 +227,39 @@ so nothing is timed meanwhile):
    settings are listed as ``reduced``.  cli: ``reproduce --integrator
    volpathsimple-drt-quadratic --retries 1`` on tiny-cube (20 iterations
    at batch 256): one child without ``--retries``, exit 0, its initial and
-   final checkpoints and finite losses.  The cli child and half of
-   unbiased's seeds (in the twins' worker) run while the other half runs
-   here; card_vs_cpu and times run alone.
+   final checkpoints and finite losses.  The cli child, unbiased's seeds
+   (NESTED_SEEDS_HERE here, each other one in a worker) and every
+   ``check_step``'s twins (see 8) run together; card_vs_cpu and times run
+   alone.
+9d. parallel: data parallel (``uivr_tpu_torch.parallel``) at janga-smoke's
+   full training width on its truth grids (32,768 pixels of the training
+   sensors, 1,024 primal and 16 adjoint spp, max_depth 64, a constant
+   reference of 0.25), four render seeds (PARALLEL_SEEDS).  This process
+   first takes, alone on the card, the value-and-grad of each of the two
+   shards of the first seed with its rank's mixed seeds, and the unsharded
+   step of every seed.  (a) two ranks on the one card (gloo: NCCL refuses
+   two ranks on one device), spawned by ``parallel.spawn``, run
+   ``sharded_loss_and_grad`` for every seed with the counters set to 0
+   just before each step: both ranks bit-equal; the first step's loss
+   within 1e-6 relative and its gradients within 1e-5 relative L1 of the
+   mean of this process's two shards (the atomics' order); the four seeds'
+   mean loss within 5% of the unsharded steps' and the mean gradients'
+   z-slab sums correlated above 0.85 (tests/test_parallel.py's statistical
+   check); every rank's every step launched K1, K2 (and its path-state
+   entry), K4 and the four DRT kernels, no direct kernel and no twin; the
+   step's host-clock ms on the two ranks (time-sliced on one card, not a
+   scaling figure) beside the unsharded step's.  (b) a one-rank NCCL group
+   on cuda:0 runs the same step on the first half of the batch, which is
+   the parent's shard 0: equal to it within the same tolerances.  (c)
+   ``python -m uivr_tpu_torch.cli.reproduce --config tiny-cube --integrator
+   volpathsimple-drt --mesh 2 --scale 0.01`` (20 iterations at batch 256),
+   started beside (b): exit 0, gloo on both ranks, one metrics file, one
+   set of initial and final checkpoints, both ranks' final grids equal
+   (the digests each rank prints).  native_loads: janga-smoke's and
+   dust-devil's XML presets loaded from ``write_standins``' assets with the
+   native helpers and with the Python path asked for (``native._load``
+   made to find no compiler): the seconds of each load, ``native.CALLS``
+   showing which path ran, and the maps and emitter tables bit-equal.
 10. kernels: every kernel of both paths at the shape the main path gives
    it, with its launches, time, plain version's time, bound and agreement;
    K6's row gives the walking kernels' times with K6 on and off at the
@@ -263,6 +298,7 @@ K6 classified), 28 B of envmap per scatter, 36 B per ray.  The training
 kernels' bounds (``adjoint_bound``, ``drt_bounds``) follow the same two
 rules, from this run's per-lane counters.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -735,27 +771,30 @@ def phase_adjoint(card, dev, vs, janga, dust, cube, rays_of):
                                "itself without K6 or with the twin")
 
 
-# check_step's adjoint-slice twin, the longest of a step's three twin
-# computations, runs in a worker process (spawn, its own CUDA context)
-# while this process runs the other two: the twins are bound by host time
-# per op, so two processes on two cores take about the time of the
-# longest.  Arguments and results cross as torch.save bytes (CUDA tensors
-# arrive on the card), not through shared memory.
+# The plain twins run in worker processes (spawn, each its own CUDA
+# context) while this process runs other untimed work: the twins are bound
+# by host time per op, so processes on cores of their own take about the
+# time of the longest.  run_twins keeps to one worker and this process;
+# phase 9c runs every check_step's twins and its own seeds on all
+# TWIN_WORKERS.  Arguments and results
+# cross as torch.save bytes (CUDA tensors arrive on the card), not through
+# shared memory.
+TWIN_WORKERS = 5
 _TWIN_POOL = []
 
 
 def twin_pool():
-    """The worker (started on the first call)."""
+    """The workers (each started on first need)."""
     if not _TWIN_POOL:
         import concurrent.futures
         import multiprocessing
         _TWIN_POOL.append(concurrent.futures.ProcessPoolExecutor(
-            max_workers=1, mp_context=multiprocessing.get_context("spawn")))
+            max_workers=TWIN_WORKERS, mp_context=multiprocessing.get_context("spawn")))
     return _TWIN_POOL[0]
 
 
 def close_twin_pool():
-    """Stop the worker, if one was started."""
+    """Stop the workers, if any was started."""
     while _TWIN_POOL:
         _TWIN_POOL.pop().shutdown(wait=True, cancel_futures=True)
 
@@ -791,13 +830,15 @@ def adjoint_twin(cfg, sc, o, d, seed, dL, deferred=True):
 
 
 def _twin_fn(name):
-    """Twin ``name``: a ``volpath_flat`` entry point, or adjoint_twin."""
+    """Twin ``name``: a ``volpath_flat`` entry point, adjoint_twin or
+    (``drt_twin``) _check_drt_twin."""
     from uivr_tpu_torch.integrators import volpath_flat
-    return adjoint_twin if name == "adjoint_twin" else getattr(volpath_flat, name)
+    own = {"adjoint_twin": adjoint_twin, "drt_twin": _check_drt_twin}
+    return own[name] if name in own else getattr(volpath_flat, name)
 
 
 def _twin_job(name, payload, keep):
-    """In the worker: twin ``name`` on ``payload``'s (args, kw) under
+    """In a worker: twin ``name`` on ``payload``'s (args, kw) under
     inference mode; returns the bytes of the items ``keep`` of its result
     and its milliseconds."""
     import torch
@@ -811,6 +852,11 @@ def _twin_job(name, payload, keep):
     return _dumps(tuple(out[i] for i in keep)), ms
 
 
+def _twin_jobs(jobs):
+    """In a worker: :func:`_twin_job` on each of ``jobs`` in turn."""
+    return [_twin_job(*job) for job in jobs]
+
+
 def _twin_warm():
     import torch
 
@@ -820,7 +866,7 @@ def _twin_warm():
 
 
 def submit_twin(name, keep, *args, **kw):
-    """Run twin ``name`` in the worker: a future of (its result's items
+    """Run twin ``name`` in a worker: a future of (its result's items
     ``keep``, ms)."""
     return twin_pool().submit(_twin_job, name, _dumps((args, kw)), keep)
 
@@ -832,15 +878,16 @@ def twin_result(fut):
 
 def run_twins(jobs):
     """Twin jobs ``(name, keep, args, kw)``, two at a time: every other one
-    in the worker, the rest here meanwhile.  Returns ``(the items keep of
-    its result, ms)`` for each, in order.  Nothing may be timed on the card
-    while this runs: the worker's launches share it."""
+    in one worker, in turn, the rest here meanwhile.  Returns ``(the items
+    keep of its result, ms)`` for each, in order.  Nothing may be timed on
+    the card while this runs: the worker's launches share it."""
     import torch
-    futures = {i: submit_twin(name, keep, *args, **kw)
-               for i, (name, keep, args, kw) in enumerate(jobs) if i % 2 == 1}
+    odd = [i for i in range(len(jobs)) if i % 2 == 1]
+    fut = twin_pool().submit(_twin_jobs, [(jobs[i][0], _dumps((jobs[i][2], jobs[i][3])),
+                                           jobs[i][1]) for i in odd])
     out = {}
     for i, (name, keep, args, kw) in enumerate(jobs):
-        if i in futures:
+        if i in odd:
             continue
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -848,7 +895,7 @@ def run_twins(jobs):
             res = _twin_fn(name)(*args, **kw)
         torch.cuda.synchronize()
         out[i] = (tuple(res[k] for k in keep), (time.perf_counter() - t0) * 1e3)
-    out.update({i: twin_result(f) for i, f in futures.items()})
+    out.update({i: (_loads(data), ms) for i, (data, ms) in zip(odd, fut.result())})
     return [out[i] for i in range(len(jobs))]
 
 
@@ -1090,32 +1137,52 @@ def check_step(card, vs, tag, step):
     draws and reservoir depth on its last SLICE rays (the twin keyed by
     their ray ids), and ``drt_backward_kernel`` against
     ``_drt_backward_flat`` on all of the step's reservoirs (the twin's
-    global-counter sampler admits no subset).  The adjoint slice's twin
-    runs in the worker (``submit_twin``) while this process runs the
-    primal slice's and the DRT term's."""
+    global-counter sampler admits no subset).  The DRT walks' times are
+    taken here; the rest waits: the pending check is returned for phase
+    9c, which runs its three twins (the adjoint slice's replay primal and
+    adjoint walk, and the DRT term) in the twins' workers
+    (``submit_check``) and the DRT kernel in this process
+    (``finish_check``), beside its other untimed work."""
+    a, dr = step["adjoint"], step["drt"]
+    walk, nee = drt_turns(vs, a["cfg"], a["scene"], dr["seed"], dr["res"], dr["adjoint"])
+    walk["causes"] = drt_walk_causes(vs, a["cfg"], a["scene"], dr["seed"], dr["res"],
+                                     dr["adjoint"], walk["grid_lanes"])
+    return {"card": card, "tag": tag, "step": step, "walk": walk, "nee": nee}
+
+
+def submit_check(pending):
+    """The twins of a pending check, submitted to the twins' workers,
+    longest first: futures of the adjoint slice's walk, the DRT term and
+    the slice's replay primal."""
+    a, dr = pending["step"]["adjoint"], pending["step"]["drt"]
+    cfg, sc = a["cfg"], a["scene"]
+    n = a["o"].shape[0]
+    sl = slice(n - SLICE, n)
+    o, d = a["o"][sl].clone(), a["d"][sl].clone()   # a view would carry all of its storage
+    return (submit_twin("adjoint_walk", (1, 2), cfg, sc, o, d, a["seed"], a["dL"][sl].clone(),
+                        a["L"][sl].clone(), lane0=n - SLICE, deferred=True),
+            submit_twin("drt_twin", (0, 1, 2, 3), cfg, sc, dr),
+            submit_twin("sample_primal", (0,), cfg, sc, o, d, a["seed"], lane0=n - SLICE,
+                        deferred=True))
+
+
+def finish_check(vs, pending, futures):
+    """``drt_backward_kernel`` on a pending check's reservoirs, then its
+    twins' results (``submit_check``'s futures): the ``adjoint_step`` and
+    ``drt`` records and their checks."""
     import torch
-    from uivr_tpu_torch.integrators import volpath_flat
     from uivr_tpu_torch.scene.gradients import init_accum
+    card, tag, step = pending["card"], pending["tag"], pending["step"]
     a, dr = step["adjoint"], step["drt"]
     cfg, sc = a["cfg"], a["scene"]
     n = a["o"].shape[0]
     sl = slice(n - SLICE, n)
-    # timed before the worker starts (it shares the card)
-    walk, nee = drt_turns(vs, cfg, sc, dr["seed"], dr["res"], dr["adjoint"])
-    walk["causes"] = drt_walk_causes(vs, cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
-                                     walk["grid_lanes"])
-    adj_twin = submit_twin("adjoint_walk", (1, 2), cfg, sc, a["o"][sl].clone(),
-                           a["d"][sl].clone(), a["seed"], a["dL"][sl].clone(),
-                           a["L"][sl].clone(), lane0=n - SLICE, deferred=True)
-    t0 = time.perf_counter()
-    Lt, _ = volpath_flat.sample_primal(cfg, sc, a["o"][sl], a["d"][sl], a["seed"],
-                                       lane0=n - SLICE, deferred=True)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
     m = sc.medium
     acc_k, k = vs.drt_backward_kernel(cfg, sc, dr["seed"], dr["res"], dr["adjoint"],
                                       init_accum(m, need_emission=False), return_stats=True)
-    drt_twin = _check_drt_twin(cfg, sc, dr)
+    adj_twin, drt_twin, primal_twin = futures
+    (Lt,), primal_plain_ms = twin_result(primal_twin)
+    drt_twin = twin_result(drt_twin)[0]
     (res_t, st_t), adj_plain_ms = twin_result(adj_twin)
     adj_agree = {"replay_L": lane_agreement(a["L"][sl], Lt),
                  "dim": equal_frac(a["stats"]["dim"][sl], st_t["dim"]),
@@ -1127,7 +1194,7 @@ def check_step(card, vs, tag, step):
     adj_rec = {"phase": "adjoint_step", "step": tag, "adjoint_rays": n,
                "adjoint_slice": [n - SLICE, n], "adjoint_agreement": adj_agree,
                "need": 0.90, "adjoint_max_abs_err": adj_err, "adjoint_plain_ms": adj_plain_ms,
-               "adjoint_primal_plain_ms": (t1 - t0) * 1e3,
+               "adjoint_primal_plain_ms": primal_plain_ms,
                "adjoint_cls": cls_counts(a["stats"]["cls"]),
                "grads_finite": bool(torch.isfinite(g.sigma_t).all()
                                     and torch.isfinite(g.albedo).all()),
@@ -1142,7 +1209,8 @@ def check_step(card, vs, tag, step):
     rec = {"phase": "drt", "step": tag, "reservoirs": n,
            "vertices": int((dr["res"].active & k["found"]).sum()),
            "K_A": k["k_a"], "K_B": k["k_b"], "recursive_cls": cls_counts(k["rec_stats"]["cls"]),
-           "walk_persistent_vs_direct": walk, "nee_persistent_vs_direct": nee, "card": card}
+           "walk_persistent_vs_direct": pending["walk"],
+           "nee_persistent_vs_direct": pending["nee"], "card": card}
     acc_t, p, drt_plain_ms, drt_plain_total_ms = drt_twin
     both = k["path_state"].active & p["path_state"].active
     agree = {f: equal_frac(k[f], p[f]) for f in ("t_sel", "wsum", "found")}
@@ -1916,7 +1984,8 @@ def phase_nerf(card, vs, probe_lib, janga, dust, out_dir):
         counters_zero()
         t0 = time.perf_counter()
         with StepRecorder(vs, loop) as r, NerfCalls(nerf_step) as calls:
-            reproduce._run_stages(args("janga-smoke", "nerf"), preset, b, refs, 64, dev)
+            a_ = args("janga-smoke", "nerf")
+            reproduce._run_stages(a_, preset, b, refs, 64, dev, reproduce._stage_opts(a_))
         torch.cuda.synchronize()
         stage_s = time.perf_counter() - t0
         launches = {k: v for k, v in vs.LAUNCHES.items() if v}
@@ -1952,8 +2021,9 @@ def phase_nerf(card, vs, probe_lib, janga, dust, out_dir):
         counters_zero()
         t0 = time.perf_counter()
         with StepRecorder(vs, loop) as r:
-            reproduce._run_stages(args("janga-smoke-from-nerf", "volpathsimple-drt"),
-                                  get_scene_config("janga-smoke-from-nerf"), b, refs, 64, dev)
+            a_ = args("janga-smoke-from-nerf", "volpathsimple-drt")
+            reproduce._run_stages(a_, get_scene_config("janga-smoke-from-nerf"), b, refs, 64,
+                                  dev, reproduce._stage_opts(a_))
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         launches = {k: v for k, v in vs.LAUNCHES.items() if v}
@@ -3281,6 +3351,7 @@ def fixed_cube_rays(b, dev, rep):
     return sample_rays(b.cameras, torch.zeros(uv.shape[0], dtype=torch.int64, device=dev), uv)
 
 
+NESTED_SEEDS_HERE = 2   # (a)'s seeds run in this process; the others in the workers
 NESTED_CONFIGS = {   # (a)'s estimators, all with NEE at max_depth 16
     "basic": dict(use_drt=False, engine="nested"),
     "drt": dict(engine="nested"),
@@ -3333,23 +3404,24 @@ def nested_unbiased(vs, cube, dev, seeds=6, rep=2048):
     """(a): the gradients of the nested engine's three forms and of the
     kernels' ``volpathsimple-drt`` on tiny-cube (max_depth 16, NEE on), their
     means over ``seeds`` seeds agreeing pairwise, and the nested primal's
-    image against the kernel's per channel.  The worker runs the second
-    half of the seeds meanwhile: nothing here is timed but the seconds of
-    each estimator, which include the sharing."""
+    image against the kernel's per channel.  The first NESTED_SEEDS_HERE
+    seeds run here, each other one in a worker of its own: nothing here is
+    timed but the seconds of each estimator, which include the sharing."""
     import torch
     _, b, sc = cube
     o, d = fixed_cube_rays(b, dev, rep)
     n = o.shape[0]
     all_seeds = [400 + 17 * s for s in range(seeds)]
-    half = (seeds + 1) // 2
-    fut = twin_pool().submit(_nested_seed_job, _dumps((sc, o, d, all_seeds[half:])))
-    grads, images, secs = nested_seed_runs(vs, sc, o, d, all_seeds[:half])
-    g2, i2, s2 = _loads(fut.result())
-    for k in grads:
-        grads[k] += g2[k]
-        secs[k] += s2[k]
-    for k in images:
-        images[k] += i2[k]
+    futs = [twin_pool().submit(_nested_seed_job, _dumps((sc, o, d, [s])))
+            for s in all_seeds[NESTED_SEEDS_HERE:]]
+    grads, images, secs = nested_seed_runs(vs, sc, o, d, all_seeds[:NESTED_SEEDS_HERE])
+    for fut in futs:
+        g2, i2, s2 = _loads(fut.result())
+        for k in grads:
+            grads[k] += g2[k]
+            secs[k] += s2[k]
+        for k in images:
+            images[k] += i2[k]
     means = {k: torch.stack(v).mean(0) for k, v in grads.items()}
     scale = means["basic"].abs().max().item()
     pairs = {}
@@ -3532,15 +3604,18 @@ def nested_cli(out_dir):
             "losses": losses, "checkpoints": ckpts, "ok": bool(ok)}
 
 
-def phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel_rays):
-    """9c: the nested engine on the card (see the module docstring)."""
+def phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel_rays,
+                 pending=()):
+    """9c: the nested engine on the card (see the module docstring), and
+    the rest of the ``pending`` checks (``check_step``); returns its
+    record and the finished checks, in order."""
     import torch
     from uivr_tpu_torch.integrators import volpathsimple
     import threading
     t0 = time.perf_counter()
     calls = dict(volpathsimple.CALLS)
-    # (d) runs its child process while (a) runs here and in the worker;
-    # (b) and (c) then run alone
+    # (d) runs its child process while (a) runs here and in the workers,
+    # beside the pending checks' twins; (b) and (c) then run alone
     cli = {}
 
     def run_cli():
@@ -3550,8 +3625,13 @@ def phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel
             cli.update(ok=False, error=traceback.format_exc().splitlines()[-1])
     cli_thread = threading.Thread(target=run_cli)
     cli_thread.start()
-    unbiased = nested_unbiased(vs, cube, dev)
-    cli_thread.join()
+    try:
+        futures = [submit_check(p) for p in pending]
+        unbiased = nested_unbiased(vs, cube, dev)
+        checks = [finish_check(vs, p, f) for p, f in zip(pending, futures)]
+    finally:
+        cli_thread.join()
+    shared_s = time.perf_counter() - t0
     twins = nested_card_vs_cpu(janga, random_pixel_rays(janga[1], 1 << 14), dev)
     times = nested_times(vs, janga, dev, render_chunk, random_pixel_rays, out_dir)
     depth = times["quadratic_adjoint"]["largest_depth_within_budget"]
@@ -3559,7 +3639,8 @@ def phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel
                "max_depth": f"16 in the step; the quadratic adjoint at {depth} (64)",
                "iterations": "1 (6000)"}
     rec = {"phase": "nested", "unbiased": unbiased, "card_vs_cpu": twins, "times": times,
-           "cli": cli, "reduced": reduced,
+           "cli": cli, "reduced": reduced, "checks": [p["tag"] for p in pending],
+           "shared_seconds": shared_s,
            "nested_calls": {k: volpathsimple.CALLS[k] - calls[k] for k in calls},
            "seconds": time.perf_counter() - t0, "card": card}
     emit(rec)
@@ -3577,6 +3658,283 @@ def phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel
                      "kernels' preset did")
     if fails:
         raise RuntimeError(f"nested: checks failed: {fails}")
+    return rec, checks
+
+
+PARALLEL_BATCH = 32768         # janga-smoke's training batch, pixels
+PARALLEL_PIXEL_SEED = 3        # the batch's pixels, as tests/test_parallel.py draws them
+PARALLEL_SEEDS = (11, 31, 51, 71)   # render seeds of the four steps, seed_grad = seed + 1
+PARALLEL_KERNELS = ("tea", "volpath_primal", "volpath_primal_state", "volpath_adjoint",
+                    "volpath_drt_walk", "volpath_drt_nee", "volpath_drt_phase",
+                    "volpath_drt_scatter")
+
+
+def parallel_setup(b, dev, first_half=False):
+    """(render, (sensor_idx, pixels, ref)) of the ``parallel`` phase:
+    ``volpathsimple-drt`` at janga-smoke's full training width (1,024
+    primal and 16 adjoint spp, max_depth 64), PARALLEL_BATCH pixels of the
+    training sensors drawn from PARALLEL_PIXEL_SEED (its first half with
+    ``first_half``), a constant reference of 0.25 (tests/test_parallel.py's)."""
+    import torch
+    from uivr_tpu_torch.config import get_int_config, get_scene_config
+    from uivr_tpu_torch.render.batched import (RenderSettings, make_render,
+                                               sample_batch_pixels)
+    cfg = get_int_config("volpathsimple-drt").create(
+        max_depth=get_scene_config("janga-smoke").max_depth)
+    st = RenderSettings(integrator=cfg, medium=b.medium_cfg, film_size=b.film_size,
+                        spp=16 * 64, spp_grad=16)
+    sidx, pix = sample_batch_pixels(PARALLEL_PIXEL_SEED, b.cameras.n_sensors, b.film_size,
+                                    PARALLEL_BATCH, sensors=b.sensors, device=dev)
+    batch = (sidx, pix, torch.full((PARALLEL_BATCH, 3), 0.25, device=dev))
+    if first_half:
+        batch = tuple(x[:PARALLEL_BATCH // 2] for x in batch)
+    return make_render(st, b.to_world), batch
+
+
+def grad_slabs(grads):
+    """The gradients' z-slab sums, concatenated (tests/test_parallel.py's
+    aggregate: per-voxel DRT gradients are noise-dominated at this budget)."""
+    import torch
+    return torch.cat([g.reshape(g.shape[0], -1).sum(1) for g in grads]).cpu().numpy()
+
+
+def parallel_rank(mesh, first_half, out_path):
+    """One rank of the ``parallel`` phase: janga-smoke's truth grids built
+    on the rank's device, its shard of the batch, one
+    ``sharded_loss_and_grad`` step a seed of PARALLEL_SEEDS with every
+    counter set to 0 just before; saves each step's loss, gradient slabs,
+    host-clock ms (ending in a sync) and launch counts, the first step's
+    gradients and the group's backend to ``out_path % rank``."""
+    import torch
+    import torch.distributed as dist
+    from uivr_tpu_torch.config import get_scene_config
+    from uivr_tpu_torch.integrators import volpath_flat
+    from uivr_tpu_torch.ops import volpath_step as vs
+    from uivr_tpu_torch.opt import losses
+    from uivr_tpu_torch.parallel import shard_batch, sharded_loss_and_grad
+    b = get_scene_config("janga-smoke").build(device=mesh.device)
+    render, batch = parallel_setup(b, mesh.device, first_half)
+    vag = sharded_loss_and_grad(mesh, render, losses.l1)
+    sidx, pix, ref = shard_batch(mesh, batch)
+    steps, first = [], None
+    for s in PARALLEL_SEEDS:
+        for k in vs.LAUNCHES:
+            vs.LAUNCHES[k] = 0
+        for k in volpath_flat.CALLS:
+            volpath_flat.CALLS[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads = vag(b.params, b.emitter, b.cameras, sidx, pix, ref, s, s + 1)
+        torch.cuda.synchronize()
+        steps.append({"seed": s, "ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss),
+                      "slabs": grad_slabs(grads), "launches": dict(vs.LAUNCHES),
+                      "plain_calls": dict(volpath_flat.CALLS),
+                      "finite": all(bool(torch.isfinite(g).all()) for g in grads)})
+        if first is None:
+            first = [loss.cpu()] + [g.cpu() for g in grads]
+    torch.save({"steps": steps, "first": first, "backend": dist.get_backend(),
+                "world": mesh.size, "device": str(mesh.device)}, out_path % mesh.rank)
+
+
+def value_and_grad(render, b, batch, seed, seed_grad):
+    """loss and gradients of one unsharded step (the plain autograd of the
+    batch render, as opt.loop's step takes them)."""
+    import torch
+    from uivr_tpu_torch.opt import losses
+    leaves = type(b.params)(*[p.detach().requires_grad_(True) for p in b.params])
+    sidx, pix, ref = batch
+    value = losses.l1(render(leaves, b.emitter, b.cameras, sidx, pix, seed, seed_grad), ref)
+    return [value.detach()] + list(torch.autograd.grad(value, leaves))
+
+
+def rel_err(got, want):
+    """Relative error of the loss and each gradient field: |a-b| / |b| for
+    the loss, relative L1 for the grids (0 where both are 0)."""
+    out = {"loss": abs(float(got[0]) - float(want[0])) / max(abs(float(want[0])), 1e-30)}
+    for k, a, b_ in zip(("sigma_t", "albedo", "emission"), got[1:], want[1:]):
+        a, b_ = a.to(b_.device), b_
+        num, den = float((a - b_).abs().sum()), float(b_.abs().sum())
+        out[k] = num / den if den > 0 else (0.0 if num == 0 else math.inf)
+    return out
+
+
+def within(err, loss_tol=1e-6, grad_tol=1e-5):
+    return err["loss"] <= loss_tol and all(err[k] <= grad_tol
+                                           for k in ("sigma_t", "albedo", "emission"))
+
+
+def native_loads(card, dev, out_dir):
+    """janga-smoke's and dust-devil's XML presets loaded from stand-in
+    assets (``write_standins``) with the native helpers and with the Python
+    path asked for explicitly (``native._load`` made to find no compiler),
+    each load's seconds and the helpers' ``CALLS``; the maps and every
+    emitter table must be bit-equal."""
+    import os
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from uivr_tpu_torch import native
+    tmp = tempfile.TemporaryDirectory(prefix="uivr_scenes_", dir=out_dir)
+    root = Path(tmp.name)
+    write_standins(root)
+    os.environ["UIVR_SCENE_DIR"] = str(root)
+    recs = {}
+    try:
+        for name in ("janga-smoke", "dust-devil"):
+            loads = {}
+            for path in ("native", "python"):
+                calls = dict(native.CALLS)
+                with mock.patch.object(native, "_load", return_value=None) \
+                        if path == "python" else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    _, b, _ = xml_scene(name, dev)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                loads[path] = (dt, {k: native.CALLS[k] - calls[k] for k in calls}, b.emitter)
+            e_n, e_p = loads["native"][2], loads["python"][2]
+            tables = ("data", "row_pmf", "cond_pmf", "alias_tab")
+            equal = all(torch.equal(getattr(e_n, k), getattr(e_p, k)) for k in tables) and (
+                (e_n.nee is None and e_p.nee is None)
+                or all(torch.equal(getattr(e_n.nee, k), getattr(e_p.nee, k)) for k in tables))
+            recs[name] = {"load_s_native": loads["native"][0], "load_s_python": loads["python"][0],
+                          "calls_native": loads["native"][1], "calls_python": loads["python"][1],
+                          "envmap": list(e_n.data.shape[:2]), "tables_equal": bool(equal)}
+    finally:
+        del os.environ["UIVR_SCENE_DIR"]
+        tmp.cleanup()
+    ok = all(r["tables_equal"] and r["calls_native"]["native"] > 0
+             and r["calls_native"]["python"] == 0 and r["calls_python"]["python"] > 0
+             and r["calls_python"]["native"] == 0 for r in recs.values())
+    return {"scenes": recs, "ok": bool(ok)}
+
+
+def mesh_cli(out_dir):
+    """(c): ``reproduce --config tiny-cube --integrator volpathsimple-drt
+    --mesh 2 --scale 0.01`` (20 iterations at batch 256) as a child process,
+    started here and returned as (Popen, its outputs directory, its
+    command)."""
+    import shutil
+    outputs = out_dir / "mesh"
+    if outputs.exists():
+        shutil.rmtree(outputs)
+    cmd = [sys.executable, "-m", "uivr_tpu_torch.cli.reproduce", "--config", "tiny-cube",
+           "--integrator", "volpathsimple-drt", "--mesh", "2", "--scale", "0.01",
+           "--ref-spp", "16", "--outputs", str(outputs)]
+    proc = subprocess.Popen(cmd, cwd=str(HERE), stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, outputs, cmd
+
+
+def mesh_cli_result(proc, outputs, cmd, t0):
+    import re
+    out, _ = proc.communicate(timeout=300)
+    dt = time.perf_counter() - t0
+    stage = outputs / "tiny-cube" / "volpathsimple-drt"
+    metrics = sorted(str(p.relative_to(outputs)) for p in outputs.rglob("metrics.jsonl"))
+    losses = []
+    if (stage / "metrics.jsonl").exists():
+        with open(stage / "metrics.jsonl") as f:
+            losses = [r["loss"] for r in map(json.loads, f) if "loss" in r]
+    ckpts = sorted(p.name for p in (stage / "params").glob("*")) \
+        if (stage / "params").exists() else []
+    digests = dict(re.findall(r"\[rank (\d+)/2\] tiny-cube/volpathsimple-drt final grids "
+                              r"sha256 ([0-9a-f]{16})", out))
+    backends = re.findall(r"\[dist\] rank \d+/2: (\w+)", out)
+    want = sorted(f"{p}-medium1_{k}.vol" for p in ("initial", "final")
+                  for k in ("sigma_t", "albedo", "emission"))
+    ok = (proc.returncode == 0 and metrics == ["tiny-cube/volpathsimple-drt/metrics.jsonl"]
+          and ckpts == want and losses and all(math.isfinite(x) for x in losses)
+          and sorted(digests) == ["0", "1"] and len(set(digests.values())) == 1
+          and backends == ["gloo", "gloo"])
+    return {"command": " ".join(cmd[1:]).replace(str(outputs), "<outputs>"),
+            "exit_code": proc.returncode, "seconds": dt, "metrics_files": metrics,
+            "checkpoints": ckpts, "losses": losses, "final_grids_sha256": digests,
+            "backends": backends, "ok": bool(ok),
+            "tail": out.splitlines()[-12:] if proc.returncode else []}
+
+
+def phase_parallel(card, vs, dev, janga, out_dir):
+    """9d: data parallel (``uivr_tpu_torch.parallel``) and the native host
+    helpers (see the module docstring)."""
+    import torch
+    from uivr_tpu_torch.parallel import Mesh, local_seeds, shard_batch, spawn
+    t_phase = time.perf_counter()
+    _, b, _ = janga
+    render, batch = parallel_setup(b, dev)
+    # the parent's steps first, alone on the card: each shard of the first
+    # seed with its rank's seeds, then the unsharded step of every seed
+    s0 = PARALLEL_SEEDS[0]
+    shards = []
+    for m in (Mesh(size=2, rank=r, device=dev) for r in range(2)):
+        shards.append(value_and_grad(render, b, shard_batch(m, batch), *local_seeds(m, s0, s0 + 1)))
+    mean = [(x + y) / 2 for x, y in zip(*shards)]
+    single = []
+    for s in PARALLEL_SEEDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = value_and_grad(render, b, batch, s, s + 1)
+        torch.cuda.synchronize()
+        single.append({"ms": (time.perf_counter() - t0) * 1e3, "loss": float(g[0]),
+                       "slabs": grad_slabs(g[1:])})
+    # (a) two ranks on this card (gloo)
+    path = str(out_dir / "parallel-rank%d.pt")
+    t0 = time.perf_counter()
+    spawn(parallel_rank, 2, (False, path), device="cuda", timeout_s=300)
+    a_s = time.perf_counter() - t0
+    ranks = [torch.load(path % r, weights_only=False) for r in range(2)]
+    errs = [rel_err(r_["first"], mean) for r_ in ranks]
+    ranks_equal = all(torch.equal(x, y) for x, y in zip(ranks[0]["first"], ranks[1]["first"]))
+    ls = [st["loss"] for st in ranks[0]["steps"]]
+    l1s = [st["loss"] for st in single]
+    m_sh = np.mean([st["slabs"] for st in ranks[0]["steps"]], 0)
+    m_1 = np.mean([st["slabs"] for st in single], 0)
+    corr = float(np.corrcoef(m_1, m_sh)[0, 1])
+    loss_gap = abs(np.mean(ls) - np.mean(l1s)) / max(abs(np.mean(l1s)), 1e-9)
+    launched = [{k: st["launches"][k] for k in PARALLEL_KERNELS} for r_ in ranks
+                for st in r_["steps"]]
+    direct = sum(v for r_ in ranks for st in r_["steps"] for k, v in st["launches"].items()
+                 if k.endswith("_direct"))
+    plain = sum(v for r_ in ranks for st in r_["steps"] for v in st["plain_calls"].values())
+    sharded_ms = [max(r_["steps"][i]["ms"] for r_ in ranks) for i in range(len(PARALLEL_SEEDS))]
+    a = {"backends": [r_["backend"] for r_ in ranks], "devices": [r_["device"] for r_ in ranks],
+         "seconds": a_s, "rel_err_vs_shard_mean": errs, "ranks_bit_equal": ranks_equal,
+         "losses_sharded": ls, "losses_single": l1s, "loss_gap": float(loss_gap),
+         "slab_correlation": corr, "launches_per_rank_step": launched[:2],
+         "direct_launches": direct, "plain_calls": plain,
+         "finite": all(st["finite"] for r_ in ranks for st in r_["steps"]),
+         "step_ms_two_ranks_time_sliced_on_one_card": sharded_ms,
+         "step_ms_single_process": [st["ms"] for st in single]}
+    a["ok"] = bool(a["backends"] == ["gloo", "gloo"] and all(within(e) for e in errs)
+                   and ranks_equal and loss_gap < 0.05 and corr > 0.85 and a["finite"]
+                   and all(all(v > 0 for v in la.values()) for la in launched)
+                   and direct == 0 and plain == 0)
+    # (c) reproduce --mesh 2 in a child process, beside (b)
+    t_c = time.perf_counter()
+    cli = mesh_cli(out_dir)
+    # (b) a one-rank NCCL group on cuda:0, on the first half of the batch:
+    # its shard 0 is the parent's
+    path_b = str(out_dir / "parallel-nccl-rank%d.pt")
+    spawn(parallel_rank, 1, (True, path_b), device="cuda", timeout_s=300)
+    nccl = torch.load(path_b % 0, weights_only=False)
+    err_b = rel_err(nccl["first"], shards[0])
+    b_rec = {"backend": nccl["backend"], "world": nccl["world"], "device": nccl["device"],
+             "rel_err_vs_shard0": err_b, "launches": nccl["steps"][0]["launches"],
+             "ok": bool(nccl["backend"] == "nccl" and within(err_b)
+                        and all(nccl["steps"][0]["launches"][k] > 0 for k in PARALLEL_KERNELS))}
+    c = mesh_cli_result(*cli, t_c)
+    loads = native_loads(card, dev, out_dir)
+    rec = {"phase": "parallel", "scene": "janga-smoke", "batch": PARALLEL_BATCH,
+           "spp": "1024 primal x 16 adjoint", "max_depth": 64, "seeds": list(PARALLEL_SEEDS),
+           "two_ranks_gloo": a, "one_rank_nccl": b_rec, "reproduce_mesh": c,
+           "native_loads": loads, "seconds": time.perf_counter() - t_phase, "card": card,
+           "note": "two ranks share one card, time-sliced: not a scaling figure; NCCL "
+                   "across several GPUs is not exercised on a one-card machine"}
+    emit(rec)
+    fails = [k for k, v in (("two_ranks_gloo", a), ("one_rank_nccl", b_rec),
+                            ("reproduce_mesh", c), ("native_loads", loads)) if not v["ok"]]
+    if fails:
+        raise RuntimeError(f"parallel: checks failed: {fails}")
     return rec
 
 
@@ -3603,6 +3961,7 @@ def main(argv=None):
 
     import numpy as np
 
+    from uivr_tpu_torch import native
     from uivr_tpu_torch.cli import render as cli_render
     from uivr_tpu_torch.config import get_int_config, get_scene_config
     from uivr_tpu_torch.core import exr_io, rng
@@ -3633,6 +3992,9 @@ def main(argv=None):
     vs.build()      # one nvcc per source, all started together
     for name in vs.LIBS:
         vs._load(name)
+    t_native = time.time()
+    native_lib = native.lib_path("g++") if native._load() is not None else None
+    native_build_s = time.time() - t_native
     fmad_log, _ = fmad_proc.communicate()
     if fmad_proc.returncode != 0:
         raise RuntimeError(f"nvcc --fmad=true failed:\n{fmad_log}")
@@ -3644,6 +4006,8 @@ def main(argv=None):
           "cuda": torch.version.cuda, "python": sys.version.split()[0],
           "libraries": {k: str(b["path"].relative_to(HERE)) for k, b in vs.BUILD.items()},
           "build_s": round(build_s, 3),
+          "native_library": str(native_lib.relative_to(HERE)) if native_lib else None,
+          "native_build_s": round(native_build_s, 3),
           "nvcc_s": {k: b["seconds"] for k, b in vs.BUILD.items()},
           "ptxas": {k: ptxas_report(b["log"]) for k, b in vs.BUILD.items()},
           "ptxas_l2_probe": ptxas_report(probe_log),
@@ -3934,9 +4298,9 @@ def main(argv=None):
     phase_adjoint(card, dev, vs, janga, dust, cube, random_pixel_rays)
     train, start, truth = phase_train(card, vs, janga, out_dir, 3, 64,
                                       ab=("truth", "start") if sweep else ("truth",), trace=True)
-    check_step(card, vs, "start", start)
+    start_check = check_step(card, vs, "start", start)
     check = check_step(card, vs, "truth", truth)
-    k7_train, k7_first, k7_rec, _ = phase_k7_train(card, vs, janga, out_dir, train)
+    k7_train, k7_first, k7_rec, k7_check = phase_k7_train(card, vs, janga, out_dir, train)
     dust_train, _, dust_truth = phase_train(
         card, vs, dust, out_dir, 2, 16, {"lr": 1e-4, "lr_factors": {"albedo": 100.0}},
         checkpoints=False, ab=more_ab)
@@ -3945,7 +4309,11 @@ def main(argv=None):
     phase_fd(card, vs, out_dir)
     nerf_rows = phase_nerf(card, vs, probe_lib, janga, dust, out_dir)
     k3b, xml = phase_xml(card, vs, dev, out_dir, random_pixel_rays, render_chunk, more_ab)
-    phase_nested(card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel_rays)
+    # every check_step's twins, the longest first
+    _, (dust_check, _, _, check, _) = phase_nested(
+        card, vs, dev, janga, cube, out_dir, render_chunk, random_pixel_rays,
+        pending=(dust_check, xml["check"], k7_check, check, start_check))
+    phase_parallel(card, vs, dev, janga, out_dir)
     for k in kernels:
         k["launches_per_train_step"] = train["iterations"][0]["launches"].get(k["name"], 0)
     kernels += training_kernels(train, truth, check)

@@ -14,7 +14,13 @@ selects the plain PyTorch path.  ``--retries N`` supervises the run: it
 runs the same command without ``--retries`` in a child process and, while
 the child fails, runs it again (at most N more times, 30 s apart), each
 attempt skipping the finished stages and resuming the others from their
-latest full-state checkpoint.  Not ported yet: ``--mesh`` (data parallel).
+latest full-state checkpoint.  ``--mesh N`` trains data-parallel on N
+ranks, one process each (``uivr_tpu_torch.parallel``): rank r on
+``cuda:r % device_count`` (NCCL when every rank has a card of its own,
+gloo when ranks share one) or, with ``--device cpu``, N gloo ranks on the
+CPU.  Each stage's batch must divide by N.  The kernels are built before
+the ranks start; rank 0 renders the references and writes every file, and
+``--retries`` supervises the whole group.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from ..core.device import resolve_device
 from ..opt import (OptimizationConfig, load_checkpoint, load_references,
                    render_references, run_optimization)
 from ..opt.schedule import Schedule
+from ..parallel import on_rank0, spawn
 from ..render import RenderSettings
 
 # Per-scene/integrator optimization overrides, as in the reference.
@@ -87,7 +94,8 @@ def main(argv=None):
                     help="shadow-walk Russian-roulette threshold of the "
                          "reference render and the volpath stages (0 = off)")
     ap.add_argument("--mesh", type=int, default=0,
-                    help="shard over N devices (not ported yet)")
+                    help="train data-parallel on N ranks, one process and device "
+                         "each (0 = one process, no mesh)")
     ap.add_argument("--scan-stride", type=int, default=10,
                     help="accepted for the reference's interface; the port "
                          "runs the host loop, with identical seeds and pixels")
@@ -99,12 +107,40 @@ def main(argv=None):
                     help="torch device (default cuda, which must exist)")
     args = ap.parse_args(argv)
 
-    if args.mesh > 0:
-        raise NotImplementedError("--mesh (data-parallel training): later slice")
     if args.retries > 0:
         sys.exit(_supervise(argv if argv is not None else sys.argv[1:], args.retries))
     device = resolve_device(args.device)
+    opts = _stage_opts(args)
+    if args.mesh > 0:
+        bad = {name: o.batch_size for name, o in opts.items() if o.batch_size % args.mesh}
+        if bad:
+            raise ValueError(f"--mesh {args.mesh}: the batch sizes {bad} do not divide "
+                             f"over {args.mesh} ranks")
+        if device.type == "cuda":
+            from ..ops import volpath_step
+            volpath_step.build()     # once, before the ranks start
+        spawn(_run, args.mesh, (args, opts), device=device)
+    else:
+        _run(None, args, opts, device)
 
+
+def _stage_opts(args) -> dict:
+    """Each requested stage's OptimizationConfig."""
+    lr_factors = get_scene_config(args.config).param_lr_factors
+    opts = {}
+    for int_name in args.integrator:
+        opt = _opt_for(args.config, int_name, args.scale)
+        opt.lr_factors = dict(lr_factors)
+        opt.scan_stride = args.scan_stride
+        opts[int_name] = opt
+    return opts
+
+
+def _run(mesh, args, opts, device=None):
+    """Build the scene and its references, then run the stages: in this
+    process, or on one rank of ``mesh``."""
+    if mesh is not None:
+        device = mesh.device
     scene_preset = get_scene_config(args.config)
 
     def _scale_film(b):
@@ -121,24 +157,29 @@ def main(argv=None):
         ref_images = load_references(args.references, bundle, sensors=sensors)
         print(f"[refs] loaded precomputed references from {args.references}")
     else:
-        ref_bundle = _scale_film(scene_preset.build_ref(device=device))
-        ref_int_name = scene_preset.ref_integrator
-        if ref_int_name == "path":
-            # surface reference scenes: the volume tracer stands in
-            ref_int_name = "volpathsimple-basic"
-        # the reference images use stock Russian roulette (rr_depth 5)
-        ref_int = replace(get_int_config(ref_int_name).create(
-            max_depth=scene_preset.max_depth), rr_depth=5)
-        if args.shadow_rr > 0:
-            ref_int = replace(ref_int, shadow_rr=args.shadow_rr)
-        ref_settings = RenderSettings(
-            integrator=ref_int, medium=ref_bundle.medium_cfg,
-            film_size=ref_bundle.film_size, spp=ref_spp, spp_grad=ref_spp)
-        ref_images = render_references(
-            ref_bundle, ref_settings, join(args.outputs, args.config, "references"),
-            spp=ref_spp,
-            sensors=list(ref_bundle.sensors) if ref_bundle.sensors else None)
-    _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device)
+        ref_dir = join(args.outputs, args.config, "references")
+
+        def render_refs():
+            ref_bundle = _scale_film(scene_preset.build_ref(device=device))
+            ref_int_name = scene_preset.ref_integrator
+            if ref_int_name == "path":
+                # surface reference scenes: the volume tracer stands in
+                ref_int_name = "volpathsimple-basic"
+            # the reference images use stock Russian roulette (rr_depth 5)
+            ref_int = replace(get_int_config(ref_int_name).create(
+                max_depth=scene_preset.max_depth), rr_depth=5)
+            if args.shadow_rr > 0:
+                ref_int = replace(ref_int, shadow_rr=args.shadow_rr)
+            ref_settings = RenderSettings(
+                integrator=ref_int, medium=ref_bundle.medium_cfg,
+                film_size=ref_bundle.film_size, spp=ref_spp, spp_grad=ref_spp)
+            return render_references(
+                ref_bundle, ref_settings, ref_dir, spp=ref_spp,
+                sensors=list(ref_bundle.sensors) if ref_bundle.sensors else None)
+        ref_images = on_rank0(mesh, render_refs)
+        if ref_images is None:      # the other ranks read what rank 0 wrote
+            ref_images = load_references(ref_dir, bundle, sensors=sensors)
+    _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device, opts, mesh)
 
 
 def _supervise(argv, retries: int) -> int:
@@ -164,9 +205,10 @@ def _supervise(argv, retries: int) -> int:
     return rc
 
 
-def _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device):
-    """Run every requested integrator stage, warm-started from a finished
-    earlier stage where the preset names one."""
+def _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device, opts, mesh=None):
+    """Run every requested integrator stage with its config from ``opts``
+    (:func:`_stage_opts`), warm-started from a finished earlier stage
+    where the preset names one."""
     for int_name in args.integrator:
         preset = get_int_config(int_name)
         out_dir = join(args.outputs, args.config, int_name)
@@ -179,16 +221,14 @@ def _run_stages(args, scene_preset, bundle, ref_images, ref_spp, device):
             if isfile(join(ck_dir, "final-medium1_sigma_t.vol")):
                 print(f"[i] warm start from {ck_dir}")
                 start_params = load_checkpoint(ck_dir, "final", device=device)
-        opt = _opt_for(args.config, int_name, args.scale)
-        opt.lr_factors = dict(scene_preset.param_lr_factors)
-        opt.scan_stride = args.scan_stride
+        opt = opts[int_name]
         int_cfg = preset.create(max_depth=scene_preset.max_depth)
         if args.shadow_rr > 0 and hasattr(int_cfg, "shadow_rr"):
             int_cfg = replace(int_cfg, shadow_rr=args.shadow_rr)
         print(f"[run] scene={args.config} integrator={int_name} "
               f"iters={opt.n_iter} batch={opt.batch_size}")
         run_optimization(out_dir, opt, bundle, int_cfg, ref_images=ref_images,
-                         ref_spp=ref_spp, start_params=start_params)
+                         ref_spp=ref_spp, mesh=mesh, start_params=start_params)
         print(f"[done] {out_dir}")
 
 

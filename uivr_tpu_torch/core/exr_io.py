@@ -1,7 +1,8 @@
-"""Minimal OpenEXR scanline codec (pure Python + numpy).
+"""Minimal OpenEXR scanline codec (numpy + zlib, the ZIP predictors in C++).
 
-Port of ``uivr_tpu/core/exr_io.py`` (its pure numpy/zlib path; files are
-byte-identical to the reference writer's):
+Port of ``uivr_tpu/core/exr_io.py`` (files are byte-identical to the
+reference writer's; the predictors run in ``uivr_tpu_torch/native``, or in
+Python without a compiler):
 
 - write: FLOAT RGB/RGBA/Y, scanline, uncompressed or ZIP(S) via zlib
 - read:  FLOAT/HALF channels, NO_COMPRESSION / ZIPS / ZIP
@@ -13,6 +14,8 @@ import zlib
 from typing import Dict, Tuple
 
 import numpy as np
+
+from .. import native
 
 _MAGIC = 0x01312F76
 _PT_UINT, _PT_HALF, _PT_FLOAT = 0, 1, 2
@@ -34,7 +37,19 @@ def _chlist(names) -> bytes:
 
 
 def _zip_predict(data: bytes) -> bytes:
-    """EXR pre-compression reorder: interleave split + delta encode."""
+    """EXR pre-compression reorder: interleave split + delta encode (the
+    native filter, or :func:`_zip_predict_python` without a compiler)."""
+    out = native.exr_zip_predict(data)
+    return out if out is not None else _zip_predict_python(data)
+
+
+def _zip_unpredict(data: bytes) -> bytes:
+    """Inverse of :func:`_zip_predict`."""
+    out = native.exr_zip_unpredict(data)
+    return out if out is not None else _zip_unpredict_python(data)
+
+
+def _zip_predict_python(data: bytes) -> bytes:
     arr = np.frombuffer(data, dtype=np.uint8)
     half = (len(arr) + 1) // 2
     re = np.empty_like(arr)
@@ -45,7 +60,7 @@ def _zip_predict(data: bytes) -> bytes:
     return d.astype(np.uint8).tobytes()
 
 
-def _zip_unpredict(data: bytes) -> bytes:
+def _zip_unpredict_python(data: bytes) -> bytes:
     arr = np.frombuffer(data, dtype=np.uint8).astype(np.int64)
     arr[1:] -= 128
     rec = np.cumsum(arr) & 0xFF

@@ -1,10 +1,11 @@
-"""Radiance RGBE (.hdr) codec, numpy only.
+"""Radiance RGBE (.hdr) codec.
 
 Port of ``uivr_tpu/core/hdr_io.py``: the same writer (flat RGBE pixels, so
 the files are byte-identical) and a reader of the same scanline formats
 (new-style per-component run-length scanlines, flat RGBE pixels with
-old-style (1,1,1,n) run markers).  A flat scanline without run markers is
-copied whole; run-length scanlines decode run by run.
+old-style (1,1,1,n) run markers), in C++ (``uivr_tpu_torch/native``) or,
+without a compiler, in Python, where a flat scanline without run markers is
+copied whole and run-length scanlines decode run by run.
 
 Format: text header terminated by an empty line, a resolution line
 ``-Y H +X W``, then H scanlines.  Pixel decode: rgb = mantissa / 256 *
@@ -13,6 +14,8 @@ Format: text header terminated by an empty line, a resolution line
 from __future__ import annotations
 
 import numpy as np
+
+from .. import native
 
 
 def write_hdr(path: str, img: np.ndarray) -> None:
@@ -116,7 +119,16 @@ def read_hdr(path: str) -> np.ndarray:
     if len(res) != 4 or res[0] != b"-Y" or res[2] != b"+X":
         raise ValueError(f"{path}: unsupported orientation {res}")
     H, W = int(res[1]), int(res[3])
-    buf = np.frombuffer(data, np.uint8, offset=pos)
+    rgbe = native.hdr_decode_scanlines(data[pos:], W, H)
+    if rgbe is None:
+        rgbe = _decode_scanlines_python(np.frombuffer(data, np.uint8, offset=pos), W, H)
+    return _decode_rgbe(rgbe)
+
+
+def _decode_scanlines_python(buf: np.ndarray, W: int, H: int) -> np.ndarray:
+    """The (H, W, 4) RGBE pixels of the scanlines in ``buf``, in Python: the
+    reader where no compiler is present, and on input the native decoder
+    rejects, whose error it raises."""
     out = np.zeros((H, W, 4), np.uint8)
     i = 0
     for y in range(H):
@@ -125,4 +137,4 @@ def read_hdr(path: str) -> np.ndarray:
             i = _rle_scanline(buf, i + 4, out[y])
         else:
             i = _flat_scanline(buf, i, out[y])
-    return _decode_rgbe(out)
+    return out

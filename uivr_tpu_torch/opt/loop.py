@@ -6,7 +6,12 @@ TEA-derived per-iteration seeds, the learning-rate schedule with per-key
 factors, multires upsampling with an optimizer-state reset, projection of
 the grids, ``.vol`` checkpoints plus a resumable full state, previews and
 ``metrics.jsonl``.  Orchestration is host-side Python; each step's render,
-adjoint, Adam update and projection run on the grids' device.
+adjoint, Adam update and projection run on the grids' device.  With a
+``mesh`` (``uivr_tpu_torch.parallel``) every rank runs this loop: all draw
+the same global pixel batch from the same seeds, each steps on its shard,
+and the averaged gradients leave the grids equal on every rank; rank 0
+alone renders the references, writes metrics, checkpoints, state and
+previews, while the others read the references it wrote.
 """
 from __future__ import annotations
 
@@ -24,6 +29,8 @@ from ..config.scenes import SceneBundle
 from ..core import exr_io, vol_io
 from ..core.grids import resize_trilinear
 from ..core.rng import sample_tea_32
+from ..parallel import (check_replicas, on_rank0, replicate, shard_batch,
+                        sharded_loss_and_grad)
 from ..render.batched import (RenderSettings, make_render, render_image,
                               sample_batch_pixels)
 from ..scene.medium import MediumParams
@@ -186,11 +193,14 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
     """The optimization loop on the device of the bundle's grids; returns
     the optimized grids.  With ``resume`` a full state (params, Adam moments,
     iteration) is written at every checkpoint stride and a run continues
-    from it when present."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training: later slice")
+    from it when present.  With ``mesh`` (``parallel.make_mesh``) this rank
+    trains data-parallel with the others (module docstring); the bundle's
+    grids must be on the mesh's device."""
     os.makedirs(output_dir, exist_ok=True)
     dev = bundle.params.sigma_t.device
+    if mesh is not None and dev != mesh.device:
+        raise ValueError(f"the bundle's grids are on {dev}, the mesh's rank on {mesh.device}")
+    main = mesh is None or mesh.is_main
     settings = RenderSettings(integrator=int_cfg, medium=bundle.medium_cfg,
                               film_size=bundle.film_size,
                               spp=opt.spp * opt.primal_spp_factor,
@@ -200,8 +210,11 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
         ref_settings = RenderSettings(
             integrator=int_cfg, medium=bundle.medium_cfg,
             film_size=bundle.film_size, spp=ref_spp, spp_grad=ref_spp)
-        ref_images = render_references(bundle, ref_settings,
-                                       join(output_dir, "references"), spp=ref_spp)
+        ref_dir = join(output_dir, "references")
+        ref_images = on_rank0(mesh, lambda: render_references(bundle, ref_settings, ref_dir,
+                                                              spp=ref_spp))
+        if ref_images is None:      # the other ranks read what rank 0 wrote
+            ref_images = load_references(ref_dir, bundle)
     ref_images = torch.as_tensor(np.asarray(ref_images), device=dev)
 
     params = start_params if start_params is not None else bundle.start_from
@@ -224,10 +237,12 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
             start_it += 1
             if verbose:
                 print(f"[i] Resumed from iteration {start_it - 1}")
+    if mesh is not None:
+        params, opt_state = replicate(mesh, (params, opt_state))
     step_fn = _make_step(opt, settings, bundle, mesh)
 
     n_sensors = bundle.cameras.n_sensors
-    metrics_f = open(join(output_dir, "metrics.jsonl"), "a")
+    metrics_f = open(join(output_dir, "metrics.jsonl"), "a") if main else None
     preview_sensors = list(bundle.preview_sensors
                            or (bundle.sensors[:1] if bundle.sensors else [0]))
     preview_settings = RenderSettings(
@@ -235,6 +250,8 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
         spp=opt.preview_spp or opt.spp, spp_grad=opt.spp)
 
     def previews(params, tag):
+        if not main:
+            return
         for s in preview_sensors:
             img = render_image(preview_settings, params, bundle.emitter,
                                bundle.cameras, s, seed=1234,
@@ -251,7 +268,7 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
         exr_io.write_exr(join(output_dir, f"opt_{tag}_sigma_gallery.exr"),
                          gallery(np.repeat(sl, 3, axis=-1), ncols=3))
 
-    if opt.checkpoint_initial:
+    if opt.checkpoint_initial and main:
         save_checkpoint(join(output_dir, "params"), params, "initial")
     if opt.render_initial:
         previews(params, "init")
@@ -275,7 +292,7 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
         params, opt_state, loss_val = step_fn(
             params, opt_state, bundle.emitter, bundle.cameras, sensor_idx,
             pixels, ref, seed, seed_grad, lr)
-        if (it % 10) == 0 or it == opt.n_iter - 1:
+        if main and ((it % 10) == 0 or it == opt.n_iter - 1):
             lv = float(loss_val)
             metrics_f.write(json.dumps({"it": it, "loss": lv,
                                         "elapsed_s": round(time.time() - t_start, 3)})
@@ -283,7 +300,7 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
             metrics_f.flush()
             if verbose and (it % 100 == 0):
                 print(f"[{opt.name}] it {it:6d} loss {lv:.6f}")
-        if opt.checkpoint_stride and it > 0 and it % opt.checkpoint_stride == 0:
+        if main and opt.checkpoint_stride and it > 0 and it % opt.checkpoint_stride == 0:
             save_checkpoint(join(output_dir, "params"), params, f"{it:08d}")
             save_state(state_path, params, opt_state, it)
         if (opt.preview_stride and it > 0 and it % opt.preview_stride == 0
@@ -291,34 +308,44 @@ def run_optimization(output_dir: str, opt: OptimizationConfig,
             previews(params, f"{it:08d}")
         it += 1
 
-    if opt.checkpoint_final:
+    if mesh is not None:
+        check_replicas(mesh, params, f"{opt.name} final grids")
+    if opt.checkpoint_final and main:
         save_checkpoint(join(output_dir, "params"), params, "final")
     if opt.render_final:
         previews(params, "final")
-    metrics_f.close()
+    if metrics_f is not None:
+        metrics_f.close()
     return params
 
 
 def _make_step(opt: OptimizationConfig, settings: RenderSettings,
                bundle: SceneBundle, mesh=None):
     """One optimization step: render, loss, backward (the render op's
-    adjoint), Adam or SGD, projection."""
-    if mesh is not None:
-        raise NotImplementedError("data-parallel training: later slice")
+    adjoint), Adam or SGD, projection.  With ``mesh`` the step takes the
+    global batch and steps on this rank's shard of it, through
+    ``parallel.sharded_loss_and_grad``."""
     render = make_render(settings, bundle.to_world)
     loss_fn = opt.loss
     max_density = bundle.max_density
     opt_step = adam_step if opt.opt_type == "adam" else sgd_step
+    if mesh is not None:
+        vag = sharded_loss_and_grad(mesh, render, loss_fn)
+    else:
+        def vag(params, emitter, cameras, sensor_idx, pixels, ref, seed, seed_grad):
+            leaves = MediumParams(*[p.detach().requires_grad_(True) for p in params])
+            img = render(leaves, emitter, cameras, sensor_idx, pixels, seed, seed_grad)
+            loss = loss_fn(img, ref)
+            return loss.detach(), MediumParams(*torch.autograd.grad(loss, leaves))
 
     def step(params, opt_state, emitter, cameras, sensor_idx, pixels, ref,
              seed, seed_grad, lr):
-        leaves = MediumParams(*[p.detach().requires_grad_(True) for p in params])
-        img = render(leaves, emitter, cameras, sensor_idx, pixels, seed, seed_grad)
-        loss = loss_fn(img, ref)
-        grads = MediumParams(*torch.autograd.grad(loss, leaves))
+        if mesh is not None:
+            sensor_idx, pixels, ref = shard_batch(mesh, (sensor_idx, pixels, ref))
+        loss, grads = vag(params, emitter, cameras, sensor_idx, pixels, ref, seed, seed_grad)
         with torch.no_grad():
             params, opt_state = opt_step(params, grads, opt_state, lr)
             params = enforce_valid_params(params, max_density)
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     return step

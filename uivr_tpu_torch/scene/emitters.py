@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import native
 from ..core import fmath
 from ..core.aabb import transform_dirs
 from ..core.fmath import fma
@@ -190,9 +191,17 @@ def sample_deferred(e: EnvmapEmitter, u2: torch.Tensor):
 
 
 def _build_alias(pmf: np.ndarray):
-    """Walker/Vose alias table (host side, O(N)).  Pops in the same order
-    as the reference's native builder, so the tables are identical; the
-    float64 arithmetic runs on Python floats."""
+    """Walker/Vose alias table (host side, O(N)): the native builder
+    (``uivr_tpu_torch/native``), or :func:`_build_alias_python` where no
+    compiler is present."""
+    nat = native.build_alias_table(pmf)
+    return nat if nat is not None else _build_alias_python(pmf)
+
+
+def _build_alias_python(pmf: np.ndarray):
+    """The alias table in Python.  Pops in the same order as the native
+    builder, so the tables are identical; the float64 arithmetic runs on
+    Python floats."""
     N = pmf.size
     scaled = (pmf * N).tolist()
     alias = np.arange(N, dtype=np.int32)
