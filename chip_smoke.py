@@ -172,6 +172,23 @@ runs them in TWIN_WORKERS worker processes at once (``check_step``):
    times in turns (direct, new, new, direct),
    and the L2 probe's random float4 gather and atomic rates at each grid's
    voxel count (``csrc/l2_probe.cu``), which give the rows' L2 model times.
+   nerf_large (``phase_nerf_large``): the march kernels' int64_t
+   instantiation, which grids of 2^29 voxels and more take.  At 128^3, on
+   the truth step's rays and dL: the int64 primal bit-equal to the int32
+   kernel on every ray, the int64 adjoint within 1e-5 relative L1 of the
+   float64 sums of the direct kernel's terms, both pairs timed in turns
+   (int32, int64, int64, int32), ptxas' registers of both instantiations.
+   Then a NERF_LARGE_SHAPE grid (2^29 voxels, random grids from a seeded
+   generator on the card) and 131,072 rays, three in four through its
+   upper half in z (float offsets above 2^30), with every counter set to 0
+   just before the wrappers run (``index64`` picked by size): the primal
+   on every ray and the adjoint on the first NERF_LARGE_SLICE, which must
+   launch the int64 kernels only; the primal bit-equal to the plain march
+   on that slice, the adjoint within 1e-5 relative L1 of the plain adjoint
+   and of the float64 sums of the direct kernel's terms, the direct
+   kernel's own distance to those sums; both kernels' times on every ray,
+   their bounds from the voxels the march reads, the phase's seconds and
+   the card's peak allocation.
 9b. xml: the XML path.  ``write_standins`` writes stand-in assets of the
    shapes janga-smoke's and dust-devil's XML files and scene vars name
    (plumes of 136x264x136 and 256^3 voxels, albedo 128x256x128 noise and a
@@ -271,8 +288,11 @@ runs them in TWIN_WORKERS worker processes at once (``check_step``):
    k7_train; the one-ray-per-thread K7 and DRT walk and NEE kernels as
    ``comparison_only`` rows (0 launches on the main path); the NeRF rows
    (``nerf_primal``, ``nerf_adjoint``: launches in the 25-iteration stage,
-   times in its truth step, times at every shape of phase 9a; their
-   direct twins as ``comparison_only`` rows).  With UIVR_KCAND unset the
+   times in its truth step, times at every shape of phase 9a, registers
+   and times in turns with the int64 kernels; their direct twins as
+   ``comparison_only`` rows; ``nerf_primal_i64``, ``nerf_adjoint_i64``:
+   launches on nerf_large's large grid, times at 128^3 in turns and on the
+   large grid with its bound).  With UIVR_KCAND unset the
    main path must launch no K7 kernel.
    ``launches_per_train_step`` is the counters' growth over the main
    run's first recorded step.
@@ -332,6 +352,13 @@ NERF_FLOP_PER_STEP = {"nerf_primal": 129, "nerf_adjoint": 218}
 NERF_FLOP_PER_RAY = 40    # the ray's transform, slab test, entry and step
 NERF_KERNELS = ("nerf_primal", "nerf_adjoint")
 NERF_RES = (8, 16, 32, 64, 128)   # the grid resolutions of the reference's NeRF stage
+# phase nerf_large: a (D, H, W) grid of 2^29 voxels, the smallest power of
+# two whose float offsets need the kernels' int64_t instantiation, and the
+# rays of its slice held against the plain march and float64 sums
+NERF_LARGE_SHAPE = (512, 1024, 1024)
+NERF_LARGE_SLICE = 8192
+# registers of the int32_t NeRF kernels when they were measured (PERF.md)
+NERF_I32_REGISTERS = {"nerf_primal": 79, "nerf_adjoint": 153}
 
 
 T0 = time.perf_counter()
@@ -825,7 +852,8 @@ def adjoint_twin(cfg, sc, o, d, seed, dL, deferred=True):
     """Phase 6's twin: the twin's replay primal, then its adjoint walk from
     that radiance: (accumulator, reservoir, stats)."""
     from uivr_tpu_torch.integrators import volpath_flat
-    Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed, deferred=deferred)
+    Lt, _ = volpath_flat.sample_primal(cfg, sc, o, d, seed, deferred=deferred,
+                                       max_iters=cfg.max_steps)
     return volpath_flat.adjoint_walk(cfg, sc, o, d, seed, dL, Lt, deferred=deferred)
 
 
@@ -1163,7 +1191,7 @@ def submit_check(pending):
                         a["L"][sl].clone(), lane0=n - SLICE, deferred=True),
             submit_twin("drt_twin", (0, 1, 2, 3), cfg, sc, dr),
             submit_twin("sample_primal", (0,), cfg, sc, o, d, a["seed"], lane0=n - SLICE,
-                        deferred=True))
+                        deferred=True, max_iters=cfg.max_steps))
 
 
 def finish_check(vs, pending, futures):
@@ -1600,13 +1628,15 @@ def nerf_step_parts(rec):
             "rest": ms(proj[1], rec["end"]), "step": ms(rec["start"], rec["end"])}
 
 
-def nerf_work(scene, o, d, steps):
+def nerf_work(scene, o, d, steps, voxels=None):
     """(active rays, bytes the primal and the adjoint must move, their
-    float and integer operations, bytes their steps fetch) for rays o, d."""
+    float and integer operations, bytes their steps fetch) for rays o, d;
+    the grid's bytes are those of ``voxels`` voxels where given (the ones
+    the march reads), else of the whole grid."""
     m, em = scene.medium, scene.emitter
     n = o.shape[0]
     active = int(nerf_active(scene, o, d).sum())
-    grid = m.params.sigma_t[..., 0].numel() * 16
+    grid = (m.params.sigma_t[..., 0].numel() if voxels is None else voxels) * 16
     env = em.data.numel() * 4 if hasattr(em, "data") else 0
     march = active * steps
     ints = wavefront_ops(n, n)
@@ -1626,9 +1656,11 @@ class NerfShape:
     parameter blocks made once: the forward rays' primal and the adjoint
     rays' adjoint (``L_in`` their replay, ``dL`` given), each through the
     main path's launcher or its one-ray-per-thread twin, the adjoint's
-    global atomics (its counting builds) on request."""
+    global atomics (its counting builds) on request.  ``index64`` picks the
+    march kernels' index type as the wrappers' keyword does; ``grid`` is
+    the interleaved grid when the caller has made it."""
 
-    def __init__(self, vs, nerf_step, cfg, scene, fwd, adj, dL):
+    def __init__(self, vs, nerf_step, cfg, scene, fwd, adj, dL, index64=None, grid=None):
         import ctypes
 
         import torch
@@ -1636,14 +1668,16 @@ class NerfShape:
         self.lib = vs._load("nerf")
         (o, d, seed), (ao, ad, aseed) = fwd, adj
         dev = o.device
-        self.grid = nerf_step.nerf_grid(scene.medium)
+        self.grid = nerf_step.nerf_grid(scene.medium) if grid is None else grid
         self.stream = torch.cuda.current_stream().cuda_stream
         self.count = torch.zeros((1,), dtype=torch.int64, device=dev)
-        self.p, self.p_scratch = nerf_step.nerf_params(cfg, scene, o, d, seed, self.grid)
+        self.p, self.p_scratch = nerf_step.nerf_params(cfg, scene, o, d, seed, self.grid,
+                                                       index64)
         self.L = torch.empty((o.shape[0], 3), dtype=torch.float32, device=dev)
         self.valid = torch.empty((o.shape[0],), dtype=torch.bool, device=dev)
         self.p.P.L, self.p.valid = self.L.data_ptr(), self.valid.data_ptr()
-        self.a, self.a_scratch = nerf_step.nerf_params(cfg, scene, ao, ad, aseed, self.grid)
+        self.a, self.a_scratch = nerf_step.nerf_params(cfg, scene, ao, ad, aseed, self.grid,
+                                                       index64)
         self.L_in = torch.empty((ao.shape[0], 3), dtype=torch.float32, device=dev)
         valid_in = torch.empty((ao.shape[0],), dtype=torch.bool, device=dev)
         self.a.P.L, self.a.valid = self.L_in.data_ptr(), valid_in.data_ptr()
@@ -1862,6 +1896,247 @@ def nerf_shapes(card, vs, probe_lib, nerf_step, cfg, janga_in, dust_in):
     return out, stage
 
 
+def nerf_registers(vs):
+    """ptxas' registers of the march kernels' instantiations, from the NeRF
+    library's build log: {kernel: {"int32": n, "int64": n}} (the
+    adjoint's main-path build, without the atomics count)."""
+    import re
+    out = {k: {} for k in NERF_KERNELS}
+    for name, rep in ptxas_report(vs.BUILD["nerf"]["log"]).items():
+        m = re.search(r"Used (\d+) registers", rep)
+        for kernel, tmpl in (("nerf_primal", "nerf_primal_kernelI{}E"),
+                             ("nerf_adjoint", "nerf_adjoint_kernelILb0E{}E")):
+            for key, code in (("int32", "i"), ("int64", "l")):
+                if m and tmpl.format(code) in name:
+                    out[kernel][key] = int(m.group(1))
+    return out
+
+
+def nerf_march_reads(cfg, scene, o, d, seed):
+    """(distinct voxels whose corners the march of rays o, d reads, share
+    of its queries in the grid's upper half in z): the plain march's
+    points (``integrators/nerf._setup``), eight corners each, marked in a
+    bitmap of the grid's voxels."""
+    import torch
+    from uivr_tpu_torch.core.grids import _corner_indices_weights
+    from uivr_tpu_torch.core.rng import make_sampler
+    from uivr_tpu_torch.integrators import nerf
+    n = o.shape[0]
+    m, active, entry, dl, step, jit, _ = nerf._setup(
+        cfg, scene, o, d, make_sampler(seed, n_lanes=n, device=o.device))
+    shape = tuple(m.params.sigma_t.shape[:3])
+    seen = torch.zeros(math.prod(shape), dtype=torch.bool, device=o.device)
+    e, dl_, st, jt = entry[active], dl[active], step[active], jit[active]
+    upper = 0
+    for j in range(cfg.queries_per_ray):
+        p = e + (st * ((j + 1) + (jt if cfg.jitter else 0.0)))[:, None] * dl_
+        idx, _ = _corner_indices_weights(shape, p)
+        seen[idx.reshape(-1)] = True
+        upper += int((p[:, 2] >= 0.5).sum())
+    return int(seen.sum()), upper / max(int(active.sum()) * cfg.queries_per_ray, 1)
+
+
+def nerf_large_rays(b, n, dev, seed):
+    """n world rays through a medium's box (``b.to_world``), from a seeded
+    generator: each aims at a point of the box from 2 local units away;
+    three in four aim at its upper half in z, on directions a quarter as
+    steep in z as random ones."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    target = torch.rand((n, 3), generator=g, device=dev)
+    up = (3 * n) // 4
+    target[:up, 2] = 0.5 + 0.5 * target[:up, 2]
+    dirs = torch.randn((n, 3), generator=g, device=dev)
+    dirs[:up, 2] *= 0.25
+    dirs = dirs / dirs.norm(dim=1, keepdim=True)
+    T = torch.as_tensor(np.asarray(b.to_world, np.float32), device=dev)
+    o = (target - 2.0 * dirs) @ T[:3, :3].T + T[:3, 3]
+    d = dirs @ T[:3, :3].T
+    return o.contiguous(), (d / d.norm(dim=1, keepdim=True)).contiguous()
+
+
+def phase_nerf_large(card, vs, nerf_step, cfg, b, sc, fwd, adj, dL, plain):
+    """Phase nerf_large (see the module's docstring): the int64_t march
+    kernels at 128^3 against the int32_t ones on the truth step's inputs
+    (``sc``, ``fwd``, ``adj``, ``dL``; ``plain``: the plain version's L and
+    gradients on them), then on a NERF_LARGE_SHAPE grid through the
+    wrappers.  Returns its two records (128^3, the large grid)."""
+    import torch
+    from uivr_tpu_torch.core.rng import make_sampler
+    from uivr_tpu_torch.integrators import nerf
+    from uivr_tpu_torch.scene.medium import MediumConfig, MediumParams, finalize_medium
+    from uivr_tpu_torch.scene.scene import Scene
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dev = fwd[0].device
+    Lp, gp = plain
+
+    def slabs(a, ref, fn, z=16):
+        """fn over slabs of ``z`` planes of a and ref in float64: the grids
+        of the large half are too big for whole-grid temporaries."""
+        return [fn(a[i:i + z].double(), ref[i:i + z].double()) for i in range(0, a.shape[0], z)]
+
+    def rel_slabs(a, ref):
+        parts = slabs(a, ref, lambda x, y: ((x - y).abs().sum().item(), y.abs().sum().item()))
+        return sum(p[0] for p in parts) / max(sum(p[1] for p in parts), 1e-30)
+
+    def rel(g4, ref):
+        """Relative L1 of a (D, H, W, 4) gradient grid to ``ref``, either
+        of the same layout or MediumParams."""
+        sig, em = ((ref.sigma_t, ref.emission) if isinstance(ref, MediumParams)
+                   else (ref[..., :1], ref[..., 1:]))
+        return {"sigma_t": rel_slabs(g4[..., :1], sig), "emission": rel_slabs(g4[..., 1:], em)}
+
+    def max_err(g4, ref):
+        return max(max(slabs(g4[..., :1], ref.sigma_t, lambda x, y: (x - y).abs().max().item())),
+                   max(slabs(g4[..., 1:], ref.emission,
+                             lambda x, y: (x - y).abs().max().item())))
+
+    # ---- 128^3: both instantiations on the same inputs
+    sh = {w: NerfShape(vs, nerf_step, cfg, sc, fwd, adj, dL, index64=w) for w in (False, True)}
+    sh[False].primal()
+    sh[True].primal()
+    sh[True].adjoint(fresh=True)
+    sh[False].adjoint(fresh=True)
+    g64 = torch.zeros(sh[True].g.shape, dtype=torch.float64, device=dev)
+    sh[False].a.g_grid64 = g64.data_ptr()
+    sh[False].adjoint(direct=True)                  # the direct kernel's terms in float64
+    sh[False].a.g_grid64 = None
+    torch.cuda.synchronize()
+    at128 = {"rays": sh[True].n, "adjoint_rays": sh[True].n_adj,
+             "primal_equal_to_int32": bool(torch.equal(sh[True].L, sh[False].L)
+                                           and torch.equal(sh[True].valid, sh[False].valid)),
+             "adjoint_rel_l1_to_f64": {"int64": rel(sh[True].g, g64),
+                                       "int32": rel(sh[False].g, g64)},
+             "adjoint_rel_l1_to_int32": rel(sh[True].g, sh[False].g),
+             "max_abs_err_to_plain": {"nerf_primal": (sh[True].L - Lp).abs().max().item(),
+                                      "nerf_adjoint": max_err(sh[True].g, gp)}}
+    del g64
+    ms = {}
+    for key, run in (("nerf_primal", "primal"), ("nerf_adjoint", "adjoint")):
+        i32, i64, t = turns_ms(getattr(sh[False], run), getattr(sh[True], run), 5)
+        ms[key] = {"int32": i32, "int64": i64, "turns": t, "int64_over_int32": i64 / i32}
+    at128["ms"] = ms
+    regs = nerf_registers(vs)
+    at128["registers"] = regs
+    at128["int32_registers_as_measured"] = all(
+        regs[k].get("int32") == v for k, v in NERF_I32_REGISTERS.items())
+    del sh
+    torch.cuda.empty_cache()
+    ok128 = at128["primal_equal_to_int32"] and all(
+        e <= 1e-5 for e in at128["adjoint_rel_l1_to_f64"]["int64"].values())
+
+    # ---- a grid of 2^29 voxels, on the card from a seeded generator
+    D, H, W = NERF_LARGE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(20261019)
+    params = MediumParams(
+        sigma_t=torch.rand((D, H, W, 1), generator=gen, device=dev) * 0.1,
+        albedo=torch.rand((D, H, W, 3), generator=gen, device=dev),
+        emission=torch.rand((D, H, W, 3), generator=gen, device=dev) * 0.5)
+    # no majorant supergrid or subcell table: the NeRF march reads neither
+    mcfg = MediumConfig(majorant_factor=0, scale=b.medium_cfg.scale, cls_cells=0)
+    m = finalize_medium(params, mcfg, b.to_world)
+    # the path tracer's interleaved [sigma, albedo] grid, which the march
+    # does not read either: 8 GiB back
+    big = Scene(m._replace(grid=m.grid.new_empty(0)), sc.emitter, sc.cameras)
+    del m, params
+    n, S = fwd[0].shape[0], NERF_LARGE_SLICE
+    o, d = nerf_large_rays(b, n, dev, 23)
+    seed = 29
+    dLs = torch.from_numpy(np.random.RandomState(31).randn(S, 3).astype(np.float32) * 0.01).to(dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t_phase
+
+    # the wrappers, as the stage would call them on such a grid
+    for k in vs.LAUNCHES:
+        vs.LAUNCHES[k] = 0
+    for k in nerf.CALLS:
+        nerf.CALLS[k] = 0
+    L, valid = nerf_step.sample_primal_kernel(cfg, big, o, d, seed)
+    g = nerf_step.sample_adjoint_kernel(cfg, big, o[:S], d[:S], seed, dLs, L[:S].contiguous())
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in vs.LAUNCHES.items() if v}
+    plain_calls = dict(nerf.CALLS)
+    albedo_zero = not g.albedo.any().item()
+    gw = torch.cat([g.sigma_t, g.emission], dim=-1)
+    del g
+    # the plain version on the slice
+    t0 = time.perf_counter()
+    Lps, vps, _ = nerf.sample_primal(cfg, big, o[:S], d[:S], make_sampler(seed, n_lanes=S,
+                                                                          device=dev))
+    torch.cuda.synchronize()
+    p_plain_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    gps, _ = nerf.sample_adjoint(cfg, big, o[:S], d[:S], make_sampler(seed, n_lanes=S, device=dev),
+                                 dLs, L[:S].contiguous())
+    torch.cuda.synchronize()
+    a_plain_ms = (time.perf_counter() - t0) * 1e3
+    large = {"grid": [D, H, W], "voxels": D * H * W, "rays": n, "slice": S,
+             "launches": launches, "plain_calls": plain_calls,
+             "primal_bit_equal_to_plain": bool(torch.equal(L[:S], Lps)
+                                                and torch.equal(valid[:S], vps)),
+             "active_slice": int(nerf_active(big, o[:S], d[:S]).sum()),
+             "albedo_gradient_zero": albedo_zero,
+             "adjoint_rel_l1_to_plain": rel(gw, gps),
+             "max_abs_err_to_plain": {"nerf_primal": (L[:S] - Lps).abs().max().item(),
+                                      "nerf_adjoint": max_err(gw, gps)},
+             "plain_ms": {"nerf_primal": p_plain_ms, "nerf_adjoint": a_plain_ms}}
+    del gps, Lps, vps
+    # float64 sums of the direct kernel's terms, then the direct kernel
+    grid = nerf_step.nerf_grid(big.medium)
+    shs = NerfShape(vs, nerf_step, cfg, big, (o[:S], d[:S], seed), (o[:S], d[:S], seed), dLs,
+                    grid=grid)
+    if not torch.equal(shs.L_in, L[:S]):
+        raise RuntimeError("nerf_large: the launcher's primal differs from the wrapper's")
+    g64 = torch.zeros((D, H, W, 4), dtype=torch.float64, device=dev)
+    shs.a.g_grid64 = g64.data_ptr()
+    shs.adjoint(direct=True)
+    shs.a.g_grid64 = None
+    large["adjoint_rel_l1_to_f64"] = {"int64": rel(gw, g64)}
+    del gw
+    shs.adjoint(direct=True, fresh=True)
+    torch.cuda.synchronize()
+    large["adjoint_rel_l1_to_f64"]["direct"] = rel(shs.g, g64)
+    del g64, shs
+    torch.cuda.empty_cache()
+    # both kernels on every ray, and the voxels the march reads
+    shn = NerfShape(vs, nerf_step, cfg, big, (o, d, seed), (o, d, seed),
+                    torch.from_numpy(np.random.RandomState(37).randn(n, 3).astype(np.float32)
+                                     * 0.01).to(dev), grid=grid)
+    shn.primal()
+    shn.adjoint(fresh=True)
+    large["ms"] = {"nerf_primal": cuda_ms(shn.primal, 3), "nerf_adjoint": cuda_ms(shn.adjoint, 3)}
+    reads, upper = nerf_march_reads(cfg, big, o, d, seed)
+    work = nerf_work(big, o, d, cfg.queries_per_ray, voxels=reads)
+    large.update(voxels_read=reads, upper_half_query_share=upper,
+                 bound={k: bound(work[k]["bytes"], work[k]["flops"], work[k]["ints"])
+                        for k in NERF_KERNELS},
+                 max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+    del shn, grid, big
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    large["setup_s"] = setup_s
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "nerf_large", "at_128": at128, "large": large, "seconds": seconds,
+          "card": card})
+    bad = [k for k, v in (
+        ("128^3", ok128),
+        ("launches", launches.get("nerf_primal_i64") == 1 and launches.get("nerf_adjoint_i64") == 1
+         and set(launches) == {"nerf_primal_i64", "nerf_adjoint_i64"}),
+        ("plain calls", not any(plain_calls.values())),
+        ("primal", large["primal_bit_equal_to_plain"] and large["active_slice"] > S // 2),
+        ("adjoint", albedo_zero and all(
+            e <= 1e-5 for e in list(large["adjoint_rel_l1_to_plain"].values())
+            + list(large["adjoint_rel_l1_to_f64"]["int64"].values()))),
+        ("upper half", upper > 0.5)) if not v]
+    if bad:
+        raise RuntimeError(f"nerf_large: checks failed: {bad}")
+
+    return at128, large
+
+
 def phase_nerf(card, vs, probe_lib, janga, dust, out_dir):
     """The NeRF bootstrap stage of janga-smoke at the reference's width
     (``_opt_for("janga-smoke", "nerf", 1.0)``: batch 32,768, spp 4, primal
@@ -1882,7 +2157,9 @@ def phase_nerf(card, vs, probe_lib, janga, dust, out_dir):
     5. both kernels against their direct twins at every shape of
        ``nerf_shapes`` (every resolution of the stage, on the truth step's
        rays, and dust-devil's 256^3), the direct twins against the plain
-       version on the truth step's inputs, plain times, bounds.
+       version on the truth step's inputs, plain times, bounds;
+    6. ``phase_nerf_large``: the kernels' int64_t instantiation at 128^3
+       and on a grid of 2^29 voxels.
     Returns the kernels line's rows."""
     import argparse
     import shutil
@@ -2011,6 +2288,7 @@ def phase_nerf(card, vs, probe_lib, janga, dust, out_dir):
         if not (launches.get("nerf_primal", 0) > 0 and launches.get("nerf_adjoint", 0) > 0
                 and not any(plain_calls.values()) and "volpath_primal" not in launches
                 and not any(launches.get(f"{k}_direct", 0) for k in NERF_KERNELS)
+                and not any(launches.get(f"{k}_i64", 0) for k in NERF_KERNELS)
                 and len(r.steps) == 25 and losses_ and all(map(math.isfinite, losses_))
                 and final_ck.exists() and tuple(final.sigma_t.shape[:3]) == (128, 128, 128)
                 and sorted(first_at.values()) == [0, 1, 4, 9, 16]):
@@ -2112,6 +2390,30 @@ def phase_nerf(card, vs, probe_lib, janga, dust, out_dir):
         r["atomics"] = s128["atomics"]["direct" if r["name"].endswith("_direct") else "redesigned"]
         r["l2_atomic_ms"] = s128["l2_model"]["nerf_adjoint"][
             "l2_atomic_ms_direct" if r["name"].endswith("_direct") else "l2_atomic_ms"]
+
+    # ---- 6. the int64_t instantiation (nerf_large): at 128^3 in turns with
+    # the int32_t kernels on the truth step's inputs, then at 2^29 voxels
+    at128, large = phase_nerf_large(card, vs, nerf_step, cfg, b, adj["scene"], (o, d, seed),
+                                    (ao, ad, aseed), dL, (Lp, gp))
+    for r in (rows[0], rows[2]):
+        r.update(index="int32_t", ms_turns_with_int64=at128["ms"][r["name"]]["int32"],
+                 registers=at128["registers"][r["name"]].get("int32"))
+    for r in (rows[0], rows[2]):
+        name = r["name"]
+        big_bound = large["bound"][name]
+        rows.append({
+            **{k: r[k] for k in ("route", "source", "replaces", "tpu_kernel", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms", "shape")},
+            "name": f"{name}_i64", "index": "int64_t",
+            "launches": large["launches"].get(f"{name}_i64", 0),
+            "max_abs_err": at128["max_abs_err_to_plain"][name],
+            "ms": at128["ms"][name]["int64"], "ms_turns_with_int32": at128["ms"][name]["int32"],
+            "registers": at128["registers"][name].get("int64"),
+            "large": {"grid": large["grid"], "rays": large["rays"], "ms": large["ms"][name],
+                      "bound_ms": big_bound[0], "bound_by": big_bound[1],
+                      "voxels_read": large["voxels_read"],
+                      "max_abs_err_slice": large["max_abs_err_to_plain"][name],
+                      "plain_ms_slice": large["plain_ms"][name]}})
     emit({"phase": "nerf_kernels", "rows": rows, "stage_kernel_s": stage_s, "card": card})
     return rows
 
@@ -2405,7 +2707,7 @@ def phase_k7_chunk(card, vs, cfg, sc, o, d, seed, dust=None, measure=True):
         return rec
     t0 = time.perf_counter()
     twin = volpath_flat.sample_primal(cfg, sc, o, d, seed, return_stats=True, deferred=True,
-                                      k_cand=4)
+                                      k_cand=4, max_iters=cfg.max_steps)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
     eq, err = k7_equal(*runs[4]["out"], *twin)
@@ -2509,7 +2811,8 @@ def phase_k7_train(card, vs, janga, out_dir, k1_train):
     lo = n - K7_SLICE
     t0 = time.perf_counter()
     twin = volpath_flat.sample_primal(cfg, sc, o[lo:], d[lo:], seed, return_stats=True,
-                                      lane0=lo, deferred=True, k_cand=4)
+                                      lane0=lo, deferred=True, k_cand=4,
+                                      max_iters=cfg.max_steps)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
     eq, err = k7_equal(L[lo:], e[lo:], {k: v[lo:] for k, v in st.items()}, *twin)
@@ -2563,7 +2866,7 @@ def phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays, chunk, k1_
     pair["z"] = z_scores(pair)
     W, H = b.film_size
     job = ("sample_primal", (0, 1, 2), (cfg, sc, o, d, seed),
-           dict(return_stats=True, deferred=True, k_cand=4))
+           dict(return_stats=True, deferred=True, k_cand=4, max_iters=cfg.max_steps))
 
     def finish(twin, p_ms):
         eq, err = k7_equal(Lk, ek, sk, *twin)
@@ -3138,11 +3441,11 @@ def _xml_phases(card, vs, dev, out_dir, random_pixel_rays, render_chunk, ab, ass
     k7_job, k7_finish = phase_k7_xml(card, vs, cli_render, cfg, b, sc, random_pixel_rays,
                                      (co, cd), k1_render, out_dir)
     primal_twin, adj_twin, chunk_twin, k7_twin = run_twins([
-        ("sample_primal", (0, 1, 2), (cfg, sc, o, d, seed), dict(return_stats=True,
-                                                                 deferred=True)),
+        ("sample_primal", (0, 1, 2), (cfg, sc, o, d, seed),
+         dict(return_stats=True, deferred=True, max_iters=cfg.max_steps)),
         ("adjoint_walk", (0, 1, 2), (cfg, sc, ao, ad, seed, dL, La), dict(deferred=True)),
-        ("sample_primal", (0, 1, 2), (cfg, sc, co, cd, seed0), dict(return_stats=True,
-                                                                    deferred=True)),
+        ("sample_primal", (0, 1, 2), (cfg, sc, co, cd, seed0),
+         dict(return_stats=True, deferred=True, max_iters=cfg.max_steps)),
         k7_job])
 
     (Lp, ep, sp), p_ms = primal_twin
@@ -4139,7 +4442,7 @@ def main(argv=None):
         fmad_L = run_fmad(cfg, sc, o, d, seed) if name == "janga-smoke" else None
         checked.append((name, nee, need, cfg, sc, o, d, Lk, ek, sk, cls, rec, bad, fmad_L))
     twins = iter(run_twins([("sample_primal", (0, 1, 2), (cfg, sc, o, d, seed),
-                             dict(return_stats=True, deferred=True))
+                             dict(return_stats=True, deferred=True, max_iters=cfg.max_steps))
                             for _, _, need, cfg, sc, o, d, *_ in checked if need is not None]))
     for name, nee, need, cfg, sc, o, d, Lk, ek, sk, cls, rec, bad, fmad_L in checked:
         if need is not None:
@@ -4230,7 +4533,7 @@ def main(argv=None):
                                lambda: vs.sample_primal_kernel(cfg, no_cls(sc), o, d, seed0), 3)
     t0 = time.perf_counter()
     Lp, ep, sp = volpath_flat.sample_primal(cfg, sc, o, d, seed0, return_stats=True,
-                                            deferred=True)
+                                            deferred=True, max_iters=cfg.max_steps)
     torch.cuda.synchronize()
     p_ms = (time.perf_counter() - t0) * 1e3
     steps = int(sk["steps"].sum())

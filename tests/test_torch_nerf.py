@@ -17,10 +17,10 @@
   sqrt(k); measured 2e-7 on the 16^3 smoke, k = 128, and 2-3e-6 on the 3^3
   cube, k = 19,418, bound 8.3e-6);
 - the main path's march (``NerfPrimalTask``, ``NerfAdjointTask``) over
-  the list of rays inside the box, built with g++, on an 8^3 and a 128^3
-  grid: L bit for bit, gradients within 1e-6 relative L1 (measured
-  5.7e-7 at 8^3, where a voxel takes about 2,000 adds, and 3.5e-9 at
-  128^3);
+  the list of rays inside the box, built with g++ in both index types, on
+  an 8^3 and a 128^3 grid: L bit for bit, gradients within 1e-6 relative
+  L1 (measured 5.7e-7 at 8^3, where a voxel takes about 2,000 adds, and
+  3.5e-9 at 128^3), and the int64_t march's equal to the int32_t one's;
 - two ``run_optimization`` iterations of a NeRF stage on the cube fixture
   at batch 64: the same seeds and pixels, losses within 1e-3 relative and
   final sigma and emission grids within 1e-3 relative L1 (the march has no
@@ -166,11 +166,17 @@ void nerf_primal_host(const uivr::NerfParams* p) {
 void nerf_adjoint_host(const uivr::NerfParams* p) {
   for (int64_t i = 0; i < p->P.n; ++i) uivr::nerf_adjoint_lane(*p, i);
 }
+// the launchers' choice of the index type
+static bool wide(const uivr::NerfParams* p) {
+  return p->index64 || uivr::nerf_needs_index64(p->P);
+}
 int64_t nerf_primal_listed(const uivr::NerfParams* p) {
-  return listed<uivr::NerfPrimalTask>(p, true);
+  return wide(p) ? listed<uivr::NerfPrimalTask<int64_t>>(p, true)
+                 : listed<uivr::NerfPrimalTask<int32_t>>(p, true);
 }
 int64_t nerf_adjoint_listed(const uivr::NerfParams* p) {
-  return listed<uivr::NerfAdjointTask<false>>(p, false);
+  return wide(p) ? listed<uivr::NerfAdjointTask<false, int64_t>>(p, false)
+                 : listed<uivr::NerfAdjointTask<false, int32_t>>(p, false);
 }
 }
 '''
@@ -209,23 +215,31 @@ def test_lane_logic_matches_plain(cube):
             tol = max(1e-6, adds ** 0.5 * 2.0 ** -24)
             assert _rel_l1(g4[..., :1], gp.sigma_t) <= tol, (name, kw)
             assert _rel_l1(g4[..., 1:], gp.emission) <= tol, (name, kw)
-    # the march indexes the grid in int32: nerf_params refuses 2^29 voxels
-    huge = tsc.medium.params._replace(sigma_t=torch.zeros(()).expand(1024, 1024, 512, 1))
+    # grids of 2^29 voxels and more march in int64 offsets: picked by size,
+    # forced by index64=True, refused by index64=False; at most 2^31 - 1 rays
+    huge = tsc.medium.params._replace(sigma_t=torch.zeros(()).expand(512, 1024, 1024, 1))
     huge = tsc._replace(medium=tsc.medium._replace(params=huge))
-    with pytest.raises(ValueError, match="2\\^29"):
-        nerf_step.nerf_params(cfg, huge, o, d, SEED, grid)
+    assert nerf_step.index64_for((512, 1024, 1024)) and nerf_step.index64_for((128,) * 3, True)
+    assert not nerf_step.index64_for((511, 1024, 1024)) and not nerf_step.index64_for((128,) * 3)
+    with pytest.raises(ValueError, match="int64"):
+        nerf_step.nerf_params(cfg, huge, o, d, SEED, grid, index64=False)
+    many = torch.zeros(()).expand(2 ** 31, 3)
+    with pytest.raises(ValueError, match="2\\^31"):
+        nerf_step.nerf_params(cfg, tsc, many, many, SEED, grid)
 
 
 def test_listed_march_matches_plain():
     """The main path's march (``NerfPrimalTask``, ``NerfAdjointTask`` in
-    ``nerf.cuh``), built with g++, over the list of rays inside the box
-    (``nerf_compact_lane``) taken last first, on 1,024 rays of the 16^3
-    smoke resampled to 8^3 and 128^3 with a random emission: L and valid
-    bit for bit against the plain march and the direct kernels' lane
-    (``nerf_primal_lane``), rays that miss written by the listing; the
-    gradients within 1e-6 relative L1 of the plain march (a ray's
-    cotangents in one cell, and in the corners two neighbouring cells
-    share, are summed before they are added: another summation order)."""
+    ``nerf.cuh``), built with g++ in both index types (int32_t, and the
+    int64_t of grids of 2^29 voxels and more, forced by ``index64``), over
+    the list of rays inside the box (``nerf_compact_lane``) taken last
+    first, on 1,024 rays of the 16^3 smoke resampled to 8^3 and 128^3 with
+    a random emission: L and valid bit for bit against the plain march and
+    the direct kernels' lane (``nerf_primal_lane``), rays that miss written
+    by the listing; the gradients within 1e-6 relative L1 of the plain
+    march (a ray's cotangents in one cell, and in the corners two
+    neighbouring cells share, are summed before they are added: another
+    summation order), and equal between the two index types."""
     import ctypes
 
     from uivr_tpu_torch.core.grids import resize_trilinear
@@ -247,8 +261,9 @@ def test_listed_march_matches_plain():
                      b.emitter, b.cameras)
         grid = nerf_step.nerf_grid(tsc.medium)
         out = {}
-        for how in ("listed", "lane"):
-            p, _ = nerf_step.nerf_params(cfg, tsc, o, d, SEED, grid)
+        for how in ("listed", "listed64", "lane"):
+            p, _ = nerf_step.nerf_params(cfg, tsc, o, d, SEED, grid,
+                                         index64=how == "listed64")
             L, valid = torch.full((n, 3), float("nan")), torch.zeros((n,), dtype=torch.bool)
             p.P.L, p.valid = L.data_ptr(), valid.data_ptr()
             if how == "lane":
@@ -260,15 +275,19 @@ def test_listed_march_matches_plain():
         assert 100 < hits < n - 100, hits
         for L, valid in out.values():
             assert torch.equal(L, Lp) and torch.equal(valid, vp), res
-        g4 = torch.zeros_like(grid)
-        p, _ = nerf_step.nerf_params(cfg, tsc, o, d, SEED, grid)
-        dL_t = torch.from_numpy(dL)
-        p.L_in, p.dL, p.g_grid = Lp.data_ptr(), dL_t.data_ptr(), g4.data_ptr()
-        assert lib.nerf_adjoint_listed(ctypes.byref(p)) == hits
         gp = _plain(cfg, tsc, o, d, dL, Lp)
-        for got, ref in ((g4[..., :1], gp.sigma_t), (g4[..., 1:], gp.emission)):
-            assert float(ref.abs().sum()) > 0
-            assert _rel_l1(got, ref) <= 1e-6, (res, _rel_l1(got, ref))
+        dL_t = torch.from_numpy(dL)
+        g = {}
+        for index64 in (False, True):     # the int32_t and int64_t march
+            g4 = g[index64] = torch.zeros_like(grid)
+            p, _ = nerf_step.nerf_params(cfg, tsc, o, d, SEED, grid, index64=index64)
+            p.L_in, p.dL, p.g_grid = Lp.data_ptr(), dL_t.data_ptr(), g4.data_ptr()
+            assert lib.nerf_adjoint_listed(ctypes.byref(p)) == hits
+            for got, ref in ((g4[..., :1], gp.sigma_t), (g4[..., 1:], gp.emission)):
+                assert float(ref.abs().sum()) > 0
+                assert _rel_l1(got, ref) <= 1e-6, (res, index64, _rel_l1(got, ref))
+        # the same sums in the same order
+        assert torch.equal(g[False], g[True]), res
 
 
 RUN = dict(spp=2, primal_spp_factor=2, n_iter=2, batch_size=64, preview_stride=0,

@@ -137,7 +137,8 @@ def test_kernel_wrapper_on_cpu_is_the_plain_twin(scenes, twin):
 def test_step_bound_and_engine_resolution(scenes, monkeypatch):
     _, tsc, _, (o, d) = scenes["smoke"]
     cfg = VolpathConfig(max_depth=8, max_steps=7)
-    L, _, st = volpath_flat.sample_primal(cfg, tsc, o, d, SEED, return_stats=True)
+    L, _, st = volpath_flat.sample_primal(cfg, tsc, o, d, SEED, return_stats=True,
+                                          max_iters=cfg.max_steps)
     assert int(st["steps"].max()) == 7 and torch.isfinite(L).all()
     assert batched._resolve_engine(VolpathConfig(), o) == "flat"
     assert batched._resolve_engine(VolpathConfig(engine="pallas"), o) == "flat"

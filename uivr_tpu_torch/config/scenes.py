@@ -1,8 +1,10 @@
 """Procedural scene builders.
 
-Port of ``uivr_tpu/config/scenes.py`` (the cube test scene and the smoke
-plume stand-in), plus :func:`bundle_from_numpy`, :func:`params_from_numpy`
-and :func:`adam_state_from_numpy`, which build a bundle, grids and Adam
+Port of ``uivr_tpu/config/scenes.py`` (the cube test scene, the smoke
+plume stand-in and :func:`scene_from_files`, which loads Mitsuba-format
+``.vol`` volumes and an EXR environment map), plus
+:func:`bundle_from_numpy`, :func:`params_from_numpy` and
+:func:`adam_state_from_numpy`, which build a bundle, grids and Adam
 moments from plain numpy arrays: the way scenes and training state are
 carried across from the JAX package.
 """
@@ -151,6 +153,51 @@ def smoke_scene(res: int = 64, resx: int = 128, resy: int = 128,
         emitter=make_envmap(envmap, device=device),
         cameras=cams, to_world=T, film_size=(resx, resy),
         start_from=_start(params, density_scale))
+
+
+def scene_from_files(sigma_vol: str, albedo_vol: str, emission_vol: str,
+                     envmap_exr: Optional[str] = None,
+                     resx: int = 720, resy: int = 620, n_sensors: int = 64,
+                     density_scale: float = 1.0, majorant_factor: int = 8,
+                     to_world: Optional[np.ndarray] = None, device=None) -> SceneBundle:
+    """A scene from Mitsuba-format assets: the paper's published ``.vol``
+    volumes and an EXR environment map (a unit constant emitter without
+    one), the interop path for running the original reconstructions.
+    One-channel albedo and emission are repeated to three channels; without
+    ``to_world`` the sigma volume's bbox is mapped onto the world.  The
+    sensors orbit the medium at 2.2 times its largest extent."""
+    from ..core.exr_io import read_exr
+    from ..core.vol_io import read_vol
+
+    device = resolve_device(device)
+    sigma, bbox = read_vol(sigma_vol)
+    albedo, _ = read_vol(albedo_vol)
+    emission, _ = read_vol(emission_vol)
+    if albedo.shape[-1] == 1:
+        albedo = np.repeat(albedo, 3, axis=-1)
+    if emission.shape[-1] == 1:
+        emission = np.repeat(emission, 3, axis=-1)
+    params = _params(sigma, albedo, emission, device)
+    if to_world is None:
+        T = np.eye(4, dtype=np.float32)
+        T[0, 0] = bbox[3] - bbox[0]
+        T[1, 1] = bbox[4] - bbox[1]
+        T[2, 2] = bbox[5] - bbox[2]
+        T[:3, 3] = bbox[:3]
+        to_world = T
+    emitter = (make_envmap(read_exr(envmap_exr), device=device) if envmap_exr
+               else constant_emitter(np.ones(3, np.float32), device=device))
+    center = to_world[:3, 3] + 0.5 * np.diag(to_world[:3, :3])
+    radius = 2.2 * float(np.abs(np.diag(to_world[:3, :3])).max())
+    cams = orbit_cameras(n_sensors, radius=radius, target=tuple(center),
+                         elevation_deg=15.0, fov_x_deg=40.0,
+                         resx=resx, resy=resy, device=device)
+    return SceneBundle(
+        params=params,
+        medium_cfg=MediumConfig(majorant_factor=majorant_factor,
+                                scale=density_scale),
+        emitter=emitter, cameras=cams, to_world=np.asarray(to_world),
+        film_size=(resx, resy), start_from=_start(params, density_scale))
 
 
 def bundle_from_numpy(d: dict, device=None) -> SceneBundle:

@@ -159,6 +159,14 @@ def lane_next_1d(s: LaneSampler, consume: torch.Tensor = None
     return _to_unit_float(bits), s._replace(dim=(s.dim + inc) & _M32)
 
 
+def lane_next_2d(s: LaneSampler, consume: torch.Tensor = None
+                 ) -> Tuple[torch.Tensor, LaneSampler]:
+    """Two uniform floats per lane (n, 2): two :func:`lane_next_1d` draws."""
+    u0, s = lane_next_1d(s, consume)
+    u1, s = lane_next_1d(s, consume)
+    return torch.stack([u0, u1], dim=-1), s
+
+
 def lane_fork(s: LaneSampler, salt) -> LaneSampler:
     """Decorrelated per-lane stream (the adjoint's alt stream)."""
     h0, h1 = tea(s.h, torch.full_like(s.h, _as_u32(salt)), rounds=6)

@@ -28,8 +28,8 @@ import torch
 
 from ..core import fmath
 from ..core.rng import Sampler, next_1d
-from ..scene.gradients import (finalize_accum, init_accum, scatter_emission,
-                               scatter_sigma)
+from ..scene.gradients import (GradAccum, finalize_accum, init_accum,
+                               scatter_emission, scatter_sigma)
 from ..scene.medium import emission_at, intersect_bbox, sigma_t_at
 from ..scene.scene import Scene
 
@@ -112,16 +112,18 @@ def sample_primal(cfg: NerfConfig, scene: Scene, o: torch.Tensor,
 
 def sample_adjoint(cfg: NerfConfig, scene: Scene, o: torch.Tensor,
                    d: torch.Tensor, sampler: Sampler, dL: torch.Tensor,
-                   state_in: torch.Tensor):
+                   state_in: torch.Tensor, grads: GradAccum = None):
     """Path-replay adjoint: the grids' gradients (MediumParams; albedo's
     zero) given the per-ray adjoint radiance ``dL`` (n,3) and the primal
     radiance ``state_in`` (n,3).  ``sampler`` must replay the primal's
-    (same seed), so the jitter matches.  Returns (gradients, sampler)."""
+    (same seed), so the jitter matches.  ``grads``: an accumulator
+    (``scene.gradients.init_accum``) to add into, in place, instead of a
+    fresh one.  Returns (gradients, sampler)."""
     if o.is_cuda:
         CALLS["nerf_adjoint"] += 1
     m, active, entry, dl, step, jit, sampler = _setup(cfg, scene, o, d, sampler)
     act = active[:, None]
-    acc = init_accum(m)
+    acc = init_accum(m) if grads is None else grads
     result = state_in.clone()
     thr = torch.ones_like(step)
     t_a = torch.zeros_like(step)

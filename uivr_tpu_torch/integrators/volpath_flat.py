@@ -23,8 +23,9 @@ majorant-tracking step per iteration and switches between walk modes:
 Lanes are independent (per-lane RNG counters), so each iteration steps only
 the lanes still walking; this stands in for the reference's compaction
 rounds (``_run_rounds``) and gives the same per-lane results.  Every lane
-is bounded by ``cfg.max_steps`` steps in the primal and ``3 * max_steps``
-in the adjoint, which interleaves three walks.
+is bounded by ``max_iters`` steps: in the primal the reference's 100,000
+(the kernels and their plain version stop at ``cfg.max_steps``), in the
+adjoint ``3 * max_steps``, as it interleaves three walks.
 
 The kernels repeat this arithmetic operation for operation, so the order of
 every sum and product here is part of the contract: transforms, dot
@@ -534,8 +535,9 @@ def _resolve_batch(cfg: VolpathConfig, scene: Scene, kc: _KCarry,
 
 
 def _sample_primal_k(cfg: VolpathConfig, scene: Scene, o, d, seed, k: int,
-                     lane0: int, deferred: bool):
-    """The K-candidate carry of world rays ``o``, ``d`` after their walks."""
+                     lane0: int, deferred: bool, max_iters: int):
+    """The K-candidate carry of world rays ``o``, ``d`` after their walks
+    (at most ``max_iters`` dispatches a lane)."""
     n, dev = o.shape[0], o.device
     c = _init_carry(scene, o, d, _lane_sampler(seed, n, dev, lane0))
     # every field gets its own storage: _run_lanes updates them in place
@@ -549,19 +551,22 @@ def _sample_primal_k(cfg: VolpathConfig, scene: Scene, o, d, seed, k: int,
                  cell_steps=zi(), fetched=zi(), discarded=zi())
     kc = _emit_batch(scene, kc)           # the first dispatch is PRE only
     return _run_lanes(lambda a: _emit_batch(scene, _resolve_batch(cfg, scene, a, deferred)),
-                      kc, lambda a: (a.c.mode != DONE) & (a.c.steps < cfg.max_steps),
+                      kc, lambda a: (a.c.mode != DONE) & (a.c.steps < max_iters),
                       lambda a: a.c.mode)
 
 
 def sample_primal(cfg: VolpathConfig, scene: Scene, o, d, seed,
                   return_stats: bool = False,
                   path_state: Optional[PathState] = None, lane0: int = 0,
-                  deferred: bool = False, k_cand: int = 1):
+                  deferred: bool = False, k_cand: int = 1, max_iters: int = 100_000):
     """Plain primal estimate of world rays ``o``, ``d`` (n, 3), or of the
     paths resumed from ``path_state`` (``o``, ``d`` unused then); the rays
     are keyed as ray ids ``lane0`` onwards.  ``deferred``: the kernels'
     deferred-radiance NEE where the emitter has a proxy.  ``k_cand > 1``:
-    K-candidate batching (world rays only, as in the reference).
+    K-candidate batching (world rays only, as in the reference).  Each
+    lane takes at most ``max_iters`` steps (dispatches with ``k_cand >
+    1``); the kernels stop at ``cfg.max_steps``, and their plain version
+    passes that.
 
     Returns ``(L (n,3), escaped (n,))`` and, with ``return_stats``, a dict
     of per-lane ``dim`` (draws consumed), ``steps`` and ``depth``; with
@@ -575,12 +580,12 @@ def sample_primal(cfg: VolpathConfig, scene: Scene, o, d, seed,
     n = (o if path_state is None else path_state.o_l).shape[0]
     dev = (o if path_state is None else path_state.o_l).device
     if k_cand > 1:
-        kc = _sample_primal_k(cfg, scene, o, d, seed, k_cand, lane0, deferred)
+        kc = _sample_primal_k(cfg, scene, o, d, seed, k_cand, lane0, deferred, max_iters)
         full = kc.c
     else:
         full = _init_carry(scene, o, d, _lane_sampler(seed, n, dev, lane0), path_state)
         full = _run_lanes(lambda c: _flat_step(cfg, scene, c, deferred=deferred)[0], full,
-                          lambda c: (c.mode != DONE) & (c.steps < cfg.max_steps),
+                          lambda c: (c.mode != DONE) & (c.steps < max_iters),
                           lambda c: c.mode)
     L = _finish(cfg, scene, full, _nee_proxy(scene, deferred))
     if return_stats:
@@ -590,6 +595,18 @@ def sample_primal(cfg: VolpathConfig, scene: Scene, o, d, seed,
                          fetched=kc.fetched, discarded=kc.discarded)
         return L, full.escaped, stats
     return L, full.escaped
+
+
+def sample_primal_compact(cfg: VolpathConfig, scene: Scene, o, d, seed, schedule=None,
+                          path_state: Optional[PathState] = None):
+    """The reference's primal with compaction rounds: ``(L (n,3), escaped
+    (n,))``.  :func:`sample_primal` already steps only the lanes still
+    walking, so this is that primal with each lane bounded at
+    ``cfg.max_steps`` steps, as the reference bounds its rounds;
+    ``schedule`` (the sizes of XLA's compaction rounds) is accepted and
+    ignored."""
+    return sample_primal(cfg, scene, o, d, seed, path_state=path_state,
+                         max_iters=cfg.max_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -690,7 +707,7 @@ def _adjoint_step(cfg: VolpathConfig, scene: Scene, acc: GradAccum,
 
 
 def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
-                 lane0: int = 0, deferred: bool = False):
+                 lane0: int = 0, deferred: bool = False, max_iters: int = None):
     """The adjoint's path-replay walk, without the delayed DRT term; the
     rays are keyed as ray ids ``lane0`` onwards (``deferred`` as in
     :func:`sample_primal`: the completed shadow walks then carry the
@@ -711,7 +728,8 @@ def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
         sh_dim0=zu.clone(), sh_adj=torch.zeros_like(c.o_l), dL=dL.clone(),
         res=_reservoir_init(torch.zeros_like(c.o_l)))
     acc = init_accum(m, need_emission=False)
-    max_iters = 3 * cfg.max_steps
+    if max_iters is None:
+        max_iters = 3 * cfg.max_steps
     full = _run_lanes(lambda a: _adjoint_step(cfg, scene, acc, a, deferred), full,
                       lambda a: (a.c.mode != DONE) & (a.c.steps < max_iters),
                       lambda a: a.c.mode)
@@ -721,14 +739,16 @@ def adjoint_walk(cfg: VolpathConfig, scene: Scene, o, d, seed, dL, state_in,
 
 
 def sample_adjoint(cfg: VolpathConfig, scene: Scene, o, d, seed, dL,
-                   state_in, deferred: bool = False):
+                   state_in, deferred: bool = False, max_iters: int = None):
     """Plain path-replay adjoint of world rays ``o``, ``d`` with per-ray
     adjoint radiance ``dL`` (n,3) and replayed primal radiance
-    ``state_in`` (n,3); ``deferred`` as in :func:`sample_primal`.
-    Returns MediumParams gradients (zero emission)."""
+    ``state_in`` (n,3); ``deferred`` as in :func:`sample_primal`; each lane
+    takes at most ``max_iters`` steps (None: ``3 * cfg.max_steps``, its
+    three walks' bound).  Returns MediumParams gradients (zero
+    emission)."""
     CALLS["volpath_adjoint"] += 1
     acc, res, _ = adjoint_walk(cfg, scene, o, d, seed, dL, state_in,
-                               deferred=deferred)
+                               deferred=deferred, max_iters=max_iters)
     if cfg.use_drt and cfg.use_drt_subsampling:
         acc = _drt_backward_flat(cfg, scene, seed, res, _reservoir_get(res) * dL,
                                  acc, deferred=deferred)
@@ -783,7 +803,8 @@ def _drt_backward_flat(cfg: VolpathConfig, scene: Scene, seed, res: _Reservoir,
         last_pdf=torch.where(active, ph_pdf, 1.0))
     rec_seed, _ = sample_tea_32(seed, 0x7177)
     rec_Li, _, rec_stats = sample_primal(cfg, scene, None, None, rec_seed, True,
-                                         path_state=ps, deferred=deferred)
+                                         path_state=ps, deferred=deferred,
+                                         max_iters=cfg.max_steps)
     Li = Li + rec_Li
 
     sig, alb = sigma_albedo_at(m, p)

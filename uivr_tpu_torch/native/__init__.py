@@ -95,6 +95,13 @@ def _load():
     return _lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here: False where no g++ is on
+    the PATH (the callers then run their Python versions); a build that
+    fails raises."""
+    return _load() is not None
+
+
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
 

@@ -37,6 +37,12 @@
 // atomics across a warp and a block-private gradient grid in shared memory
 // were slower and went.
 //
+// The march kernels come in two instantiations of their index type Idx:
+// int32_t, and int64_t for grids of 2^29 voxels and more, whose float
+// offsets pass 2^31 (nerf_needs_index64), or where the caller asks for it
+// (NerfParams::index64).  The int32_t one keeps the narrower registers of
+// the grids the stage runs.
+//
 // The one-ray-per-thread kernels they replaced (nerf_*_direct_kernel) run
 // only where a caller compares the two.  The adjoints' counting builds
 // (NerfParams::atomics set) count the global atomics they issue; the
@@ -90,17 +96,21 @@ __device__ inline void run_listed(Task& t, const uivr::NerfParams& p) {
   t.end();
 }
 
+template <class Idx>
 __global__ void __launch_bounds__(kThreads) nerf_primal_kernel(const uivr::NerfParams p) {
-  uivr::NerfPrimalTask t(p);
+  uivr::NerfPrimalTask<Idx> t(p);
   run_listed(t, p);
 }
 
-template <bool kCount>
+template <bool kCount, class Idx>
 __global__ void __launch_bounds__(kThreads) nerf_adjoint_kernel(const uivr::NerfParams p) {
-  uivr::NerfAdjointTask<kCount> t(p);
+  uivr::NerfAdjointTask<kCount, Idx> t(p);
   run_listed(t, p);
   if (kCount && t.adds) atomicAdd(p.atomics, t.adds);
 }
+
+// Whether the march kernels run in int64_t offsets.
+bool index64(const uivr::NerfParams& p) { return p.index64 || uivr::nerf_needs_index64(p.P); }
 
 unsigned int grid_of(int64_t n) { return (unsigned int)((n + kThreads - 1) / kThreads); }
 
@@ -123,7 +133,11 @@ int nerf_primal_launch(const uivr::NerfParams* params, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t e = compact(p, true, st);
   if (e != cudaSuccess) return (int)e;
-  nerf_primal_kernel<<<grid_of(p.P.n), kThreads, 0, st>>>(p);
+  if (index64(p)) {
+    nerf_primal_kernel<int64_t><<<grid_of(p.P.n), kThreads, 0, st>>>(p);
+  } else {
+    nerf_primal_kernel<int32_t><<<grid_of(p.P.n), kThreads, 0, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -135,10 +149,17 @@ int nerf_adjoint_launch(const uivr::NerfParams* params, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t e = compact(p, false, st);
   if (e != cudaSuccess) return (int)e;
-  if (p.atomics) {
-    nerf_adjoint_kernel<true><<<grid_of(p.P.n), kThreads, 0, st>>>(p);
+  const unsigned int blocks = grid_of(p.P.n);
+  if (index64(p)) {
+    if (p.atomics) {
+      nerf_adjoint_kernel<true, int64_t><<<blocks, kThreads, 0, st>>>(p);
+    } else {
+      nerf_adjoint_kernel<false, int64_t><<<blocks, kThreads, 0, st>>>(p);
+    }
+  } else if (p.atomics) {
+    nerf_adjoint_kernel<true, int32_t><<<blocks, kThreads, 0, st>>>(p);
   } else {
-    nerf_adjoint_kernel<false><<<grid_of(p.P.n), kThreads, 0, st>>>(p);
+    nerf_adjoint_kernel<false, int32_t><<<blocks, kThreads, 0, st>>>(p);
   }
   return (int)cudaGetLastError();
 }

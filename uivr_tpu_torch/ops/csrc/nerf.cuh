@@ -15,8 +15,9 @@
 // --fmad=false), and the jitter is the wavefront sampler's first draw
 // (wavefront_draw at counter 0, lane = ray index), so a lane computes the
 // plain version's bits.  The main path's form computes the same cells and
-// weights with 32-bit indices (nerf_cell) and reads a cell's corners once
-// while the queries stay in it; its adjoint sums a ray's cotangents in
+// weights (nerf_cell) in an index type Idx, int32_t or, for grids of 2^29
+// voxels and more (whose float offsets pass 2^31), int64_t, and reads a
+// cell's corners once while the queries stay in it; its adjoint sums a ray's cotangents in
 // registers while its queries stay in one cell and, when they move to a
 // neighbouring cell, adds only the corners they leave: the primal's bits
 // stay the same, the adjoint's sums change order.
@@ -43,7 +44,13 @@ struct NerfParams {
   unsigned long long* atomics;   // (1,) global atomics issued (counting builds), or null
   double* g_grid64;          // (D, H, W, 4) float64 sums of the direct adjoint's terms, or null
   int32_t steps, jitter, relu, emission_scaled, hide_emitters;
+  int32_t index64;           // march in int64_t offsets even below 2^29 voxels (main path)
 };
+
+// Whether grid (D, H, W)'s float offsets need 64 bits: D*H*W*4 >= 2^31.
+__host__ __device__ inline bool nerf_needs_index64(const PrimalParams& P) {
+  return (int64_t)P.D * P.H * P.W * 4 >= ((int64_t)1 << 31);
+}
 
 // Hopper's 16-byte atomicAdd(float4*) on global memory, which CUDA 12.9
 // brought; an older toolkit cannot build this file
@@ -247,17 +254,20 @@ __host__ __device__ inline bool nerf_compact_lane(const NerfParams& N, int64_t i
   return r.active;
 }
 
-// A query's cell: its voxel (x, y, z), the index of its corner 0 and its 8
-// trilinear weights, by corners()' float operations (the same bits), with
-// 32-bit indices (grids below 2^29 voxels: ops/nerf_step.nerf_params
-// refuses larger ones).  Corner k lies at base + the
-// strides of the set bits of k (NerfMarch::corner).
+// A query's cell: its voxel (x, y, z), the index of its corner 0 in Idx
+// (int32_t below 2^29 voxels, int64_t from there: nerf_needs_index64) and
+// its 8 trilinear weights, by corners()' float operations (the same bits).
+// Corner k lies at base + the strides of the set bits of k
+// (NerfMarch::corner).
+template <class Idx>
 struct NerfCell {
-  int32_t base, x, y, z;
+  Idx base;
+  int32_t x, y, z;
   float w[8];
 };
 
-__host__ __device__ inline void nerf_cell(const PrimalParams& P, V3 p, NerfCell& c) {
+template <class Idx>
+__host__ __device__ inline void nerf_cell(const PrimalParams& P, V3 p, NerfCell<Idx>& c) {
   const int dims[3] = {P.W, P.H, P.D};
   float f[3];
   int32_t i0[3];
@@ -275,30 +285,31 @@ __host__ __device__ inline void nerf_cell(const PrimalParams& P, V3 p, NerfCell&
   c.x = i0[0];
   c.y = i0[1];
   c.z = i0[2];
-  c.base = (i0[2] * P.H + i0[1]) * P.W + i0[0];
+  c.base = ((Idx)i0[2] * P.H + i0[1]) * P.W + i0[0];
 }
 
 // One ray's march, a query a call: query j's cell is `cur`; a query in the
 // cell of the one before reads its corners from registers (the same
 // values, so the same bits) instead of loading them again.
+template <class Idx>
 struct NerfMarch {
   NerfRay r;
-  int32_t sx, sy, sz;    // corner strides (zero on an axis of one voxel)
+  Idx sx, sy, sz;        // corner strides (zero on an axis of one voxel)
   int j;                 // the query to run
   float t_a;
-  NerfCell cur;
-  int32_t held;          // the cell whose corners v holds (-1: none)
+  NerfCell<Idx> cur;
+  Idx held;              // the cell whose corners v holds (-1: none)
   float v[8][4];
 
   __host__ __device__ void strides(const PrimalParams& P) {
     sx = P.W > 1 ? 1 : 0;
     sy = P.H > 1 ? P.W : 0;
-    sz = P.D > 1 ? P.H * P.W : 0;
+    sz = P.D > 1 ? (Idx)P.H * P.W : 0;
   }
-  __host__ __device__ int32_t corner(int32_t base, int k) const {
+  __host__ __device__ Idx corner(Idx base, int k) const {
     return base + ((k & 4) ? sz : 0) + ((k & 2) ? sy : 0) + ((k & 1) ? sx : 0);
   }
-  __host__ __device__ void cell_of(const NerfParams& N, int q, NerfCell& c) const {
+  __host__ __device__ void cell_of(const NerfParams& N, int q, NerfCell<Idx>& c) const {
     float t_b;
     nerf_cell(N.P, nerf_point(N, r, q, t_b), c);
   }
@@ -336,9 +347,10 @@ struct NerfMarch {
 
 // The primal lane of nerf_primal_kernel: listed ray order[i], a query a
 // step (the kernel loops over its steps).
+template <class Idx>
 struct NerfPrimalTask {
   const NerfParams& N;
-  NerfMarch m;
+  NerfMarch<Idx> m;
   int64_t ray;
   V3 result;
   float thr, wsum;
@@ -373,14 +385,14 @@ struct NerfPrimalTask {
 // new corner numbers; a longer move sends all 8, as does the end of the
 // ray.  Sending a corner adds its sum, when not zero, into g_grid with one
 // float4 atomic; kCount: `adds` counts them.
-template <bool kCount>
+template <bool kCount, class Idx>
 struct NerfAdjointTask {
   const NerfParams& N;
-  NerfMarch m;
+  NerfMarch<Idx> m;
   int64_t ray;
   V3 result, dL;
   float thr;
-  int32_t open;          // the open cell's base (-1: none)
+  Idx open;              // the open cell's base (-1: none)
   int32_t ox, oy, oz;    // its voxel
   float s[8][4];
   unsigned long long adds;
@@ -411,14 +423,14 @@ struct NerfAdjointTask {
     open = -1;
   }
   // the open cell (open >= 0) moves to cell c
-  __host__ __device__ void move(const NerfCell& c) {
+  __host__ __device__ void move(const NerfCell<Idx>& c) {
     const int32_t d[3] = {c.x - ox, c.y - oy, c.z - oz};
     if (d[0] < -1 || d[0] > 1 || d[1] < -1 || d[1] > 1 || d[2] < -1 || d[2] > 1) {
       flush();
     } else {
       for (int a = 0; a < 3; ++a) {
         const int bit = 1 << a;
-        const int32_t stride = a == 0 ? m.sx : (a == 1 ? m.sy : m.sz);
+        const Idx stride = a == 0 ? m.sx : (a == 1 ? m.sy : m.sz);
         if (d[a] == 1) {          // corners without `bit` go, those with it take their place
           for (int k = 0; k < 8; ++k) {
             if (k & bit) continue;

@@ -75,6 +75,9 @@ from ..scene.scene import Scene
 # kernels are the one-ray-per-thread kernels that the persistent ones
 # replaced, launched only when a caller asks (``direct``) to compare the
 # two; ``volpath_primal_k_direct`` is K7's (it counts as a K7 launch too).
+# ``nerf_primal_i64`` and ``nerf_adjoint_i64`` count the NeRF march kernels'
+# launches in int64 offsets (grids of 2^29 voxels and more), which do not
+# count as ``nerf_primal`` / ``nerf_adjoint``.
 LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_adjoint": 0, "volpath_drt_walk": 0, "volpath_drt_nee": 0,
             "volpath_drt_phase": 0, "volpath_drt_scatter": 0,
@@ -82,8 +85,8 @@ LAUNCHES = {"volpath_primal": 0, "volpath_primal_state": 0, "tea": 0,
             "volpath_primal_direct": 0, "volpath_primal_state_direct": 0,
             "volpath_primal_k_direct": 0, "volpath_adjoint_direct": 0,
             "volpath_drt_walk_direct": 0, "volpath_drt_nee_direct": 0,
-            "nerf_primal": 0, "nerf_adjoint": 0, "nerf_primal_direct": 0,
-            "nerf_adjoint_direct": 0}
+            "nerf_primal": 0, "nerf_adjoint": 0, "nerf_primal_i64": 0,
+            "nerf_adjoint_i64": 0, "nerf_primal_direct": 0, "nerf_adjoint_direct": 0}
 # K6's per-lane counters (``cls`` of the walking kernels' stats), in order:
 # candidate collisions of every walk (MAIN, SHADOW, REPLAY), MAIN null
 # events, of which classified, classified SHADOW events, sigma fetches
@@ -223,7 +226,7 @@ class NerfParams(ctypes.Structure):
         + [(f, ctypes.c_void_p) for f in ("valid", "L_in", "dL", "g_grid", "order",
                                           "listed", "atomics", "g_grid64")]
         + [(f, ctypes.c_int32) for f in (
-            "steps", "jitter", "relu", "emission_scaled", "hide_emitters")])
+            "steps", "jitter", "relu", "emission_scaled", "hide_emitters", "index64")])
 
 
 # launcher name -> extra argument types after the params pointer (before
@@ -491,7 +494,7 @@ def sample_primal_kernel(cfg: VolpathConfig, scene: Scene, o, d, seed,
     if not ref.is_cuda:
         return volpath_flat.sample_primal(cfg, scene, o, d, seed, return_stats,
                                           path_state=path_state, deferred=True,
-                                          k_cand=k_cand)
+                                          k_cand=k_cand, max_iters=cfg.max_steps)
     n, dev = ref.shape[0], ref.device
     L = torch.empty((n, 3), dtype=torch.float32, device=dev)
     escaped = torch.empty((n,), dtype=torch.bool, device=dev)

@@ -136,7 +136,7 @@ def _dispatch_primal(cfg: IntegratorConfig, scene: Scene, o, d, seed, k_cand=Non
     k = 1 if getattr(cfg, "engine", "auto") == "flat" else resolve_k_cand(k_cand)
     if engine == "kernel" or k > 1:
         return volpath_step.sample_primal_kernel(cfg, scene, o, d, seed, k_cand=k)
-    return volpath_flat.sample_primal(cfg, scene, o, d, seed)
+    return volpath_flat.sample_primal_compact(cfg, scene, o, d, seed)
 
 
 def _dispatch_adjoint(cfg: IntegratorConfig, scene: Scene, o, d, seed, dL, L):

@@ -135,6 +135,11 @@ def sigma_t_at(m: Medium, p: torch.Tensor) -> torch.Tensor:
     return trilinear_sample(m.params.sigma_t, p)[:, 0] * m.scale
 
 
+def albedo_at(m: Medium, p: torch.Tensor) -> torch.Tensor:
+    """(n, 3) single-scattering albedo at local points (n, 3)."""
+    return trilinear_sample(m.params.albedo, p)
+
+
 def emission_at(m: Medium, p: torch.Tensor, scaled: bool = True) -> torch.Tensor:
     """(n, 3) emission radiance at local points (n, 3); ``scale * grid``
     when ``scaled``."""
@@ -157,3 +162,19 @@ def intersect_bbox(m: Medium, o_world: torch.Tensor, d_world: torch.Tensor,
     ol, dl = to_local_rays(m, o_world, d_world)
     tn, tf, hit = aabb.ray_unit_cube(ol, dl, tmin, tmax)
     return tn, tf, hit, ol, dl
+
+
+def majorant_at(m: Medium, p: torch.Tensor) -> torch.Tensor:
+    """(n,) supercell majorant (scaled) at local points (n, 3): a
+    piecewise-constant lookup of the supergrid."""
+    Dc, Hc, Wc = m.majorant_grid.shape
+    res = torch.tensor([Wc, Hc, Dc], dtype=torch.float32, device=p.device)
+    hi = torch.tensor([Wc - 1, Hc - 1, Dc - 1], dtype=torch.int32, device=p.device)
+    idx = torch.minimum((torch.clamp(p, 0.0, 1.0) * res).to(torch.int32).clamp(min=0), hi)
+    idx = idx.long()
+    return m.majorant_grid[idx[..., 2], idx[..., 1], idx[..., 0]]
+
+
+def global_majorant_of(m: Medium) -> torch.Tensor:
+    """The largest supercell majorant (0-d)."""
+    return m.majorant_grid.max()

@@ -25,3 +25,11 @@ def make_scene(params: MediumParams, cfg: MediumConfig, emitter: Emitter,
                cameras: Cameras, medium_to_world: np.ndarray = None) -> Scene:
     return Scene(medium=finalize_medium(params, cfg, medium_to_world),
                  emitter=emitter, cameras=cameras)
+
+
+def update_medium_params(scene: Scene, params: MediumParams,
+                         cfg: MediumConfig) -> Scene:
+    """The scene with new grids: its medium rebuilt from ``params``
+    (majorant supergrid included) on the old medium's ``local_to_world``."""
+    m = finalize_medium(params, cfg, scene.medium.local_to_world)
+    return scene._replace(medium=m)
